@@ -3,8 +3,8 @@
 A port of :mod:`megastep_tpu` (the JAX package, which stays the reference) to
 torch tensors on an NVIDIA GPU. It keeps the JAX package's module and public
 names, so each function has a counterpart of the same name: the host scene
-compile and light bake, momentum physics, the 1-D raycast renderer and the
-Explorer env. The fused observe, a Pallas kernel in the JAX package, is a
+compile and light bake, momentum physics, the 1-D raycast renderer, the
+dynamic re-bake and the Explorer and Deathmatch envs. The fused observe, a Pallas kernel in the JAX package, is a
 hand-written CUDA kernel here (``csrc/observe.cu``).
 
 This package imports torch and numpy, never jax and nothing of

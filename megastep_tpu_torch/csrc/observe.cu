@@ -1,10 +1,27 @@
-// Fused observe for the Explorer env: raycast + shade + seen-texel mask, one
-// CUDA kernel per step.
+// Fused observe: raycast + shade (+ seen-texel mask), one CUDA kernel per step.
 //
 // Replaces: megastep_tpu/ops/fused.py::_observe_kernel, the JAX package's
-// Pallas TPU kernel, in its Explorer mode (want_seen on, skip_dyn = n_dynamic,
-// a static texel table, no table patch, no in-kernel draw, exact divides).
-// Plain version: megastep_tpu_torch/ops/fused.py::observe_explorer_plain.
+// Pallas TPU kernel, in all of its modes:
+//   K1a, Explorer: want_seen on, skip_dyn = n_dynamic, a static texel table.
+//   K1b, Deathmatch's table patch: baked_dyn (N, T_dyn) holds this frame's
+//     re-baked intensity of the first T_dyn texels (the agent models). A tap
+//     at texel k < T_dyn takes its intensity from baked_dyn[n, k] instead of
+//     the table's baked channel; its colour still comes from the table. This
+//     replaces the JAX table_patch/patch_rows, which overwrite rows of a
+//     blocked bf16 table in VMEM; the (N, T, 4) table here is never rebuilt.
+//   K1c, draw_model = M: the A*M head slots of the static lines hold the
+//     unrotated model; slot i is drawn while it is staged, by agent i / M's
+//     pose, with render.place's ops in its order: c = cosf, s = sinf of
+//     (float)(pi/180) * angle, endpoints (c*x - s*y) + px and (s*x + c*y) + py,
+//     the direction as the difference of the drawn endpoints. So it equals the
+//     launch on torch-drawn lines bit for bit, and replaces the per-step draw
+//     of the full line array.
+//   K1d, fast_div: recip = 1/uxv (an IEEE divide), s = s_num*recip,
+//     t = t_num*recip, as fused.py:307-313, in place of two IEEE divides.
+// want_seen off passes a null seen pointer: no mask is stored or allocated.
+// fast_div is a template parameter, since it sits in the line loop; the other
+// modes are uniform runtime branches outside it.
+// Plain version: megastep_tpu_torch/ops/fused.py::observe_plain.
 //
 // What it computes, per (env, agent, ray): the ray direction from the pose;
 // the ray/segment intersection (s, t) against every live line slot, with the
@@ -13,9 +30,10 @@
 // reduction semantics, fused.py:326-334 and render.py:94-98, not the
 // reference CUDA's sequential replace-if-closer scan); the winner's Lambert
 // factor 1 - dot^2; the two-tap texture filter of tex_filter (fused.py:372-379)
-// over a packed (N, T, 4) [r, g, b, baked] table; and, for a hit ray, a 1
-// stored into a per-env byte mask at the texel the ray sees (fused.py:427-429).
-// The stores are idempotent, so no atomics; misses mark nothing.
+// over a packed (N, T, 4) [r, g, b, baked] table; and, for a hit ray when the
+// mask is asked for, a 1 stored into a per-env byte mask at the texel the ray
+// sees (fused.py:427-429). The stores are idempotent, so no atomics; misses
+// mark nothing.
 //
 // Numerics: the arithmetic is the plain version's, op for op, in f32:
 // uxv = vy*rux - vx*ruy, t_num = pqx*ruy - pqy*rux, s_num = pqx*vy - pqy*vx,
@@ -28,26 +46,34 @@
 // of the f32 product (float)(pi/180) * angle, the same libdevice calls the
 // plain version's torch.cos/torch.sin make on the card.
 //
-// What bounds it on an H100 (at the Explorer bench shapes: N = 16,384 envs,
-// A = 1, R = 256 rays, 48 padded line slots of which 8 are dynamic, T = 2,304
-// texels; chip_smoke.py computes both bounds from each run's inputs):
-//   bytes: lines read once per env (24 B per live slot), two 16-B texel taps
-//     per hit ray (~134 MB), 20 B of outputs per ray (~84 MB), and the seen
-//     mask (N*T bytes zero-filled, ~38 MB, plus one byte per hit): ~266 MB,
-//     ~0.08 ms at 3.35 TB/s;
-//   operations: at most 16,384 * 256 * 40 = 1.7e8 ray-line tests if every
-//     env filled its padded slots, but the loop stops at lines_width and the
-//     procedural floorplans average ~13.4 live static slots, so ~5.6e7
-//     tests, each 18 f32 ops with two IEEE divides: ~1.0e9 ops, ~0.015 ms at
-//     67 TFLOP/s f32.
-//   So by the published rates the bytes set the bound. In practice each IEEE
-//   divide is a multi-instruction sequence, so the line loop costs more
-//   instructions than the op count says.
+// What bounds it on an H100 (chip_smoke.py computes both bounds from each
+// run's inputs):
+//  Explorer (N = 16,384 envs, A = 1, R = 256 rays, 48 padded line slots of
+//  which 8 are dynamic and skipped, T = 2,304 texels):
+//   bytes: 24 B per live line slot, 12 B of pose per agent, two 16-B texel
+//     taps per hit ray (~134 MB), 20 B of outputs per ray (~84 MB), and the
+//     seen mask (N*T bytes zero-filled, ~38 MB, plus one byte per hit):
+//     ~266 MB, ~0.08 ms at 3.35 TB/s;
+//   operations: the loop stops at lines_width, and the procedural floorplans
+//     average ~13.4 live static slots, so ~5.6e7 ray-line tests, each 18 f32
+//     ops with two IEEE divides: ~1.0e9 ops, ~0.015 ms at 67 TFLOP/s f32.
+//  Deathmatch (N = 4,096 scenes, A = 4, R = 512, L = 64 of which 32 are the
+//  agent models, T = 2,432 of which T_dyn = 64 dynamic; every mode):
+//   bytes: 24 B per live slot (~45 per env: ~4.5 MB), 12 B of pose per agent,
+//     T_dyn*4 B of baked_dyn per env (1 MB), 32 B of taps per hit ray
+//     (~268 MB), 20 B of outputs per ray (~168 MB), no seen: ~442 MB,
+//     ~0.13 ms;
+//   operations: A*R*live*18 per env, ~6.9e9 ops, ~0.10 ms (19 ops a test with
+//     fast_div: one divide and two multiplies for two divides).
+//   So by the published rates the bytes set the bound, narrowly at Deathmatch.
+//   In practice each IEEE divide is a multi-instruction sequence, so the line
+//   loop costs more instructions than the op count says.
 // What the simple design does about it: nothing yet. One block per
-// (env, agent), threads over rays, the env's live line slots staged once in
-// shared memory, two passes over them per ray (the second stops at the first
-// eligible line). A later change can trade the divides for compares against
-// the running minimum, or pack several envs per block.
+// (env, agent), threads over rays, the env's live line slots staged in shared
+// memory by every agent's block (with draw_model, every block draws all A*M
+// model slots), two passes over them per ray (the second stops at the first
+// eligible line). One block per env over A*R rays, staging once, is a later
+// lever; so are compares against the running minimum instead of divides.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +90,7 @@ struct Line {
 };
 
 // Ray/segment intersection of one line. Returns whether the ray hits it.
+template <bool kFastDiv>
 __device__ __forceinline__ bool intersect(const Line& ln, float px, float py,
                                           float rux, float ruy, float near,
                                           float& s, float& t) {
@@ -71,37 +98,66 @@ __device__ __forceinline__ bool intersect(const Line& ln, float px, float py,
   const float pqy = ln.ay - py;
   const float uxv = ln.vy * rux - ln.vx * ruy;
   if (!(fabsf(uxv) >= kParallelEps)) return false;
-  s = (pqx * ln.vy - pqy * ln.vx) / uxv;
-  t = (pqx * ruy - pqy * rux) / uxv;
+  const float s_num = pqx * ln.vy - pqy * ln.vx;
+  const float t_num = pqx * ruy - pqy * rux;
+  if (kFastDiv) {
+    const float recip = 1.f / uxv;
+    s = s_num * recip;
+    t = t_num * recip;
+  } else {
+    s = s_num / uxv;
+    t = t_num / uxv;
+  }
   return 0.f <= t && t <= 1.f && near < s;
 }
 
-__global__ void observe_explorer_kernel(
+template <bool kFastDiv>
+__global__ void observe_kernel(
     const float* __restrict__ lines,       // (N, L, 4): x0, y0, x1, y1
     const int* __restrict__ lines_width,   // (N,)
     const int* __restrict__ tex_starts,    // (N, L)
     const int* __restrict__ tex_widths,    // (N, L)
     const float4* __restrict__ table,      // (N, T): r, g, b, baked
+    const float* __restrict__ baked_dyn,   // (N, T_dyn) or null
     const float* __restrict__ angles,      // (N, A) degrees
     const float* __restrict__ positions,   // (N, A, 2)
-    int A, int L, int T, int R, int skip, float hsw, float agent_radius,
+    int A, int L, int T, int T_dyn, int R, int skip, int draw_model,
+    float hsw, float agent_radius,
     int* __restrict__ indices,             // (N, A, R)
     float* __restrict__ distances,         // (N, A, R)
     float* __restrict__ screen,            // (N, A, 3, R)
-    unsigned char* __restrict__ seen) {    // (N, T)
+    unsigned char* __restrict__ seen) {    // (N, T) or null
   extern __shared__ Line slots[];
   const int na = blockIdx.x;
   const int n = na / A;
   const int n_live = min(lines_width[n], L) - skip;
+  const int n_drawn = A * draw_model;  // 0 unless draw_model; then skip == 0
 
   for (int i = threadIdx.x; i < n_live; i += blockDim.x) {
     const size_t g = static_cast<size_t>(n) * L + skip + i;
     const float* p = lines + 4 * g;
+    float x0 = p[0], y0 = p[1], x1 = p[2], y1 = p[3];
+    if (i < n_drawn) {
+      const int owner = n * A + i / draw_model;
+      const float a = kDegToRad * angles[owner];
+      const float c = cosf(a);
+      const float s = sinf(a);
+      const float ox = positions[2 * owner];
+      const float oy = positions[2 * owner + 1];
+      const float x0d = (c * x0 - s * y0) + ox;
+      const float y0d = (s * x0 + c * y0) + oy;
+      const float x1d = (c * x1 - s * y1) + ox;
+      const float y1d = (s * x1 + c * y1) + oy;
+      x0 = x0d;
+      y0 = y0d;
+      x1 = x1d;
+      y1 = y1d;
+    }
     Line ln;
-    ln.ax = p[0];
-    ln.ay = p[1];
-    ln.vx = p[2] - p[0];
-    ln.vy = p[3] - p[1];
+    ln.ax = x0;
+    ln.ay = y0;
+    ln.vx = x1 - x0;
+    ln.vy = y1 - y0;
     ln.start = tex_starts[g];
     ln.width = tex_widths[g];
     slots[i] = ln;
@@ -114,6 +170,8 @@ __global__ void observe_explorer_kernel(
   const float px = positions[2 * na];
   const float py = positions[2 * na + 1];
   const float4* env_table = table + static_cast<size_t>(n) * T;
+  const float* env_dyn =
+      baked_dyn ? baked_dyn + static_cast<size_t>(n) * T_dyn : nullptr;
 
   for (int r = threadIdx.x; r < R; r += blockDim.x) {
     const float uy =
@@ -127,13 +185,15 @@ __global__ void observe_explorer_kernel(
     float s, t;
     float s_min = INFINITY;
     for (int i = 0; i < n_live; ++i) {
-      if (intersect(slots[i], px, py, rux, ruy, near, s, t)) s_min = fminf(s_min, s);
+      if (intersect<kFastDiv>(slots[i], px, py, rux, ruy, near, s, t))
+        s_min = fminf(s_min, s);
     }
     int idx = -1;
     float s_sel = 0.f, t_sel = 0.f;
     const float bound = s_min + kZTolerance;
     for (int i = 0; i < n_live; ++i) {
-      if (intersect(slots[i], px, py, rux, ruy, near, s, t) && s < bound) {
+      if (intersect<kFastDiv>(slots[i], px, py, rux, ruy, near, s, t) &&
+          s < bound) {
         idx = i;
         s_sel = s;
         t_sel = t;
@@ -164,9 +224,13 @@ __global__ void observe_explorer_kernel(
     const float rd = fabsf(y - static_cast<float>(rr + 1)) + 1e-3f;
     const float lw = rd / (ld + rd);
     const float rw = ld / (ld + rd);
-    const float4 tap_l = env_table[ln.start + l];
-    const float4 tap_r = env_table[ln.start + rr];
-    const float intensity = lw * tap_l.w + rw * tap_r.w;
+    const int kl = ln.start + l;
+    const int kr = ln.start + rr;
+    const float4 tap_l = env_table[kl];
+    const float4 tap_r = env_table[kr];
+    const float bl = (env_dyn && kl < T_dyn) ? env_dyn[kl] : tap_l.w;
+    const float br = (env_dyn && kr < T_dyn) ? env_dyn[kr] : tap_r.w;
+    const float intensity = lw * bl + rw * br;
     const float shadefac = (1.f - dot * dot) * intensity;
 
     indices[o] = idx + skip;
@@ -175,33 +239,43 @@ __global__ void observe_explorer_kernel(
     screen[oc + R] = shadefac * (lw * tap_l.y + rw * tap_r.y);
     screen[oc + 2 * R] = shadefac * (lw * tap_l.z + rw * tap_r.z);
 
-    // Seen texel: start + clamp(floor(tw * t), 0, tw - 1).
-    const float ti = fminf(floorf(tw * t_sel), tw - 1.f);
-    seen[static_cast<size_t>(n) * T + ln.start + static_cast<int>(fmaxf(ti, 0.f))] = 1;
+    if (seen) {
+      // Seen texel: start + clamp(floor(tw * t), 0, tw - 1).
+      const float ti = fminf(floorf(tw * t_sel), tw - 1.f);
+      seen[static_cast<size_t>(n) * T + ln.start + static_cast<int>(fmaxf(ti, 0.f))] = 1;
+    }
   }
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` without synchronising. Returns
-// cudaGetLastError() (0 when the launch was accepted).
-extern "C" int observe_explorer(
+// Launches the kernel on `stream` without synchronising. baked_dyn and seen
+// may be null. Returns cudaGetLastError() (0 when the launch was accepted).
+extern "C" int observe(
     const void* lines, const void* lines_width, const void* tex_starts,
-    const void* tex_widths, const void* table, const void* angles,
-    const void* positions, int N, int A, int L, int T,
-    int R, int skip, float hsw, float agent_radius, void* indices,
-    void* distances, void* screen, void* seen, void* stream) {
+    const void* tex_widths, const void* table, const void* baked_dyn,
+    const void* angles, const void* positions, int N, int A, int L, int T,
+    int T_dyn, int R, int skip, int draw_model, int fast_div, float hsw,
+    float agent_radius, void* indices, void* distances, void* screen,
+    void* seen, void* stream) {
   if (N == 0 || A == 0 || R == 0) return 0;
   const int threads = R < 256 ? ((R + 31) / 32) * 32 : 256;
   const size_t smem = static_cast<size_t>(L > skip ? L - skip : 0) * sizeof(Line);
-  observe_explorer_kernel<<<N * A, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lines), static_cast<const int*>(lines_width),
-      static_cast<const int*>(tex_starts), static_cast<const int*>(tex_widths),
-      static_cast<const float4*>(table), static_cast<const float*>(angles),
-      static_cast<const float*>(positions),
-      A, L, T, R, skip, hsw, agent_radius, static_cast<int*>(indices),
-      static_cast<float*>(distances), static_cast<float*>(screen),
-      static_cast<unsigned char*>(seen));
+  const dim3 grid(N * A), block(threads);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define OBSERVE_ARGS                                                          \
+  static_cast<const float*>(lines), static_cast<const int*>(lines_width),     \
+      static_cast<const int*>(tex_starts), static_cast<const int*>(tex_widths), \
+      static_cast<const float4*>(table), static_cast<const float*>(baked_dyn), \
+      static_cast<const float*>(angles), static_cast<const float*>(positions), \
+      A, L, T, T_dyn, R, skip, draw_model, hsw, agent_radius,                 \
+      static_cast<int*>(indices), static_cast<float*>(distances),             \
+      static_cast<float*>(screen), static_cast<unsigned char*>(seen)
+  if (fast_div) {
+    observe_kernel<true><<<grid, block, smem, st>>>(OBSERVE_ARGS);
+  } else {
+    observe_kernel<false><<<grid, block, smem, st>>>(OBSERVE_ARGS);
+  }
+#undef OBSERVE_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,9 +3,10 @@
 
 Each env holds static config and device tables; ``reset(rng)`` and
 ``step(state, decision, rng)`` return ``(state, world)`` with ``world`` the
-decision/world arrdict protocol: ``obs``, ``reward``, ``reset``. Only Explorer is
-ported so far.
+decision/world arrdict protocol: ``obs``, ``reward``, ``reset``. Explorer and
+Deathmatch are ported; Minimal waits.
 """
+from .deathmatch import Deathmatch
 from .explorer import Explorer
 
-__all__ = ['Explorer']
+__all__ = ['Deathmatch', 'Explorer']

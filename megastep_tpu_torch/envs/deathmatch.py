@@ -1,0 +1,220 @@
+"""The Deathmatch environment: multi-agent combat with line-of-sight shooting.
+
+Counterpart of :class:`megastep_tpu.envs.Deathmatch` (the reference
+``megastep/demo/envs/deathmatch.py:21-170``): each scene hosts ``n_agents``
+agents; an agent "shoots" whichever opponents' body models appear in the middle
+two columns of its downsampled render; health and damage bookkeeping, an
+out-of-bounds penalty, and respawn at death. The env exposes ``n_envs = n_scenes
+* n_agents`` by reshaping every (scene, agent) pair into its own single-agent
+sub-env (``expand``/``collapse``), a pure reshape of the padded tensors.
+
+Each frame the agent models are drawn (:func:`render.draw_dynamic`), their texels
+are re-lit against the static walls (:func:`bake.dynamic_texel_intensity_parts`),
+and one call of :func:`megastep_tpu_torch.ops.fused.observe` raycasts and shades
+with those intensities: on CUDA that is the hand-written kernel, on the CPU its
+plain torch version.
+"""
+import numpy as np
+import torch
+
+from .. import core, floorplans, modules, scene, spaces
+from ..arrdict import arrdict, torchify
+from ..dotdict import dotdict, mapping
+from ..ops import bake, fused, render
+
+CLEARANCE = 1.
+
+
+@mapping
+def expand(x):
+    """(B, A, ...) -> (B*A, 1, ...): each (scene, agent) pair becomes a sub-env."""
+    B, A = x.shape[:2]
+    return x.reshape(B * A, 1, *x.shape[2:])
+
+
+def collapse(x, n_agents):
+    """(B*A, 1, ...) -> (B, A, ...): back to the scene-major layout."""
+    @mapping
+    def _collapse(v):
+        B = v.shape[0]
+        return v.reshape(B // n_agents, n_agents, *v.shape[2:])
+    return _collapse(x)
+
+
+class Deathmatch:
+    """Multi-agent combat (see module docstring).
+
+    :param n_envs: total sub-env count; there are ``max(n_envs // n_agents, 1)``
+        scenes (the JAX package's deliberate divergence 2 from the reference,
+        ``PARITY.md``; the same at the default ``n_agents=4``).
+    :param n_agents: agents per scene.
+    :param geometries: geometry list, one per scene; ``None`` means
+        ``floorplans.sample(n_scenes, seed=1)``, which is what the JAX package's
+        ``cubicasa.sample`` returns when the dataset cache is absent.
+    :param subsample: rays pooled into one observed pixel.
+    :param draw_fused: draw the agent models inside the observe kernel, from the
+        static lines (``draw_model``), instead of writing the drawn models into
+        a copy of the line array each step. Same results, bit for bit.
+    :param fast_div: the observe kernel's shared-reciprocal mode (``fast_div``),
+        about an ulp off the exact quotients. Off by default, as in the JAX
+        package, where only its kernel benchmark turns it on.
+    :param random: numpy ``RandomState`` for the textures, lights and spawn
+        tables, consumed in the JAX package's order.
+    :param device: where the env runs; ``'cuda'`` unless the caller says so.
+    :param kwargs: ``res`` (default 512), ``fov`` (default 70) and the rest of
+        :class:`~megastep_tpu_torch.core.Core`'s fields.
+
+    Scenes are ordered by texel count (``scene.striped_order``) as the JAX
+    package orders them; scene ``i`` uses ``geometries[scene_order[i]]``.
+    """
+
+    def __init__(self, n_envs, n_agents=4, geometries=None, subsample=4,
+                 draw_fused=False, fast_div=False, random=None, device='cuda',
+                 **kwargs):
+        device = scene.resolve_device(device)
+        n_scenes = max(n_envs // n_agents, 1)
+        if geometries is None:
+            geometries = floorplans.sample(n_scenes, seed=1)
+        self.scene_order = scene.striped_order(geometries, n_agents)
+        geometries = [geometries[i] for i in self.scene_order]
+        scenery = scene.scenery(geometries, n_agents, random=random, device=device)
+        self.core = core.Core(scenery, res=kwargs.pop('res', 4 * 128),
+                              fov=kwargs.pop('fov', 70), **kwargs)
+        self._rgb = modules.RGB(self.core, n_agents=1, subsample=subsample)
+        self._depth = modules.Depth(self.core, n_agents=1, subsample=subsample)
+        self._imu = modules.IMU(self.core, n_agents=1)
+        self._movement = modules.MomentumMovement(self.core, n_agents=1)
+        self._spawner = modules.RandomSpawns(geometries, self.core, random=random)
+
+        self.action_space = self._movement.space
+        self.obs_space = dotdict(
+            rgb=self._rgb.space,
+            d=self._depth.space,
+            imu=self._imu.space,
+            health=spaces.MultiVector(1, 1))
+
+        self._bounds = torchify(np.stack(
+            [np.array(g.masks.shape) * g.res for g in geometries]), device)
+        # The true maximum light count: the per-frame re-bake leaves the padded
+        # light slots past it out.
+        self._k_lights = int(scenery.lights_width.max())
+        # The static shade table, packed once: the re-bake's intensities of the
+        # agent-model texels reach the kernel as its baked_dyn operand.
+        self._table = render.pack_table(scenery)
+        self.draw_fused = draw_fused
+        self.fast_div = fast_div
+
+    @property
+    def n_envs(self):
+        return self.core.n_envs * self.core.n_agents
+
+    @property
+    def device(self):
+        return self.core.device
+
+    def _respawn(self, agents, health, damage, reset, rng):
+        agents = self._spawner(agents, reset, rng)
+        health = torch.where(reset, 1., health)
+        damage = torch.where(reset, 0., damage)
+        return agents, health, damage
+
+    def _shoot(self, agents, health, damage, opponents_mid):
+        """Matches shooters to targets through the middle two columns of the
+        opponent-id image, and applies damage, wounds and the out-of-bounds
+        penalty (reference ``deathmatch.py:54-72``).
+
+        :param opponents_mid: (N, A, 1, 2) opponent ids at the two middle
+            columns of the downsampled render, -1 where no opponent shows.
+        :return: ``(health, damage, matchings, hits)``.
+        """
+        A = self.core.n_agents
+        ids = torch.arange(A, device=self.device)
+        # matchings: (N, shooter, target)
+        matchings = (opponents_mid[:, :, None] == ids[None, None, :, None, None])
+        matchings = matchings.any(-1).any(-1)
+
+        hits = matchings.sum(2).float()
+        wounds = matchings.sum(1).float()
+
+        damage = damage + .05 * hits
+
+        pos = agents.positions
+        outside = ((pos < -CLEARANCE).any(-1)
+                   | (pos > (self._bounds[:, None] + CLEARANCE)).any(-1))
+
+        # 5% damage per wound, 5% for being out of bounds, .1% per timestep.
+        health = health - .05 * (wounds + outside) - .001
+        return health, damage, matchings, hits.reshape(-1)
+
+    def _opponents(self, line_idxs):
+        """Opponent agent ids from middle-column line indices (-1 where the
+        pixel shows no agent model; reference ``deathmatch.py:74-86``)."""
+        obj_idxs = torch.div(line_idxs, self.core.scenery.n_model_lines,
+                             rounding_mode='floor')
+        mask = (0 <= line_idxs) & (obj_idxs < self.core.n_agents)
+        return torch.where(mask, obj_idxs, -1)
+
+    def _observe(self, agents, health, damage):
+        """Draw, re-bake the agent-model texels, observe in one kernel call,
+        pool, and shoot (the JAX package's ``_observe_fused``)."""
+        scn = self.core.scenery
+        c = self.core
+        nd = scn.n_dynamic
+        dyn_lines = render.draw_dynamic(scn, agents)
+        dyn = bake.dynamic_texel_intensity_parts(scn, dyn_lines, scn.lines[:, nd:],
+                                                 k_max=self._k_lights)
+        if self.draw_fused:
+            lines, draw_model = scn.lines, scn.n_model_lines
+        else:
+            lines, draw_model = torch.cat([dyn_lines, scn.lines[:, nd:]], 1), 0
+        out = fused.observe(
+            lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
+            self._table, agents.angles, agents.positions, c.res,
+            c.half_screen_width, c.agent_radius, want_seen=False, baked_dyn=dyn,
+            draw_model=draw_model, fast_div=self.fast_div)
+        s = self._rgb.subsample
+        rgb, d = modules.fused_obs(out, s, c.agent_radius, self._depth.max_depth)
+        # The two rays the shoot test reads: downsample(indices, s)[..., s//2]
+        # at the middle two downsampled columns.
+        r0 = s * (c.res // s // 2 - 1) + s // 2
+        opponents = self._opponents(out.indices[..., r0:r0 + s + 1:s][:, :, None])
+        health, damage, matchings, hits = self._shoot(agents, health, damage,
+                                                      opponents)
+        obs = arrdict(rgb=rgb, d=d, imu=self._imu(agents), health=health[..., None])
+        return obs, health, damage, matchings, hits
+
+    def reset(self, rng):
+        """Spawns everyone fresh. Returns ``(state, world)`` with the world
+        expanded to the sub-env (agent-as-env) layout.
+
+        :param rng: a ``torch.Generator`` on the env's device, or the spawn-slot
+            choices themselves, (n_scenes, n_agents) int.
+        """
+        reset = self.core.agent_full(True)
+        agents, health, damage = self._respawn(
+            self.core.init_agents(), self.core.agent_full(0.),
+            self.core.agent_full(0.), reset, rng)
+        obs, health, damage, matchings, reward = self._observe(agents, health, damage)
+        state = arrdict(agents=agents, progress=self.core.agent_full(1.),
+                        health=health, damage=damage, matchings=matchings)
+        return state, arrdict(obs=expand(obs), reward=reward, reset=reset.reshape(-1))
+
+    def step(self, state, decision, rng):
+        """One step: respawn the dead, move, observe and shoot (reference
+        ``deathmatch.py:47-52, 88-96``). Returns ``(state, world)``.
+
+        :param decision: arrdict with ``actions`` (n_envs, 1) int in [0, 7), in
+            the sub-env layout.
+        :param rng: a ``torch.Generator`` on the env's device, or the spawn-slot
+            choices themselves, (n_scenes, n_agents) int — used by the agents
+            that respawn.
+        """
+        reset = state.health <= 0
+        agents, health, damage = self._respawn(
+            state.agents, state.health, state.damage, reset, rng)
+        agents, progress = self._movement(
+            agents, collapse(decision, self.core.n_agents))
+        obs, health, damage, matchings, reward = self._observe(agents, health, damage)
+        state = arrdict(agents=agents, progress=progress,
+                        health=health, damage=damage, matchings=matchings)
+        return state, arrdict(obs=expand(obs), reward=reward, reset=reset.reshape(-1))

@@ -6,7 +6,7 @@ boolean tensor over the padded texel axis, and all state (seen set, potential,
 episode lengths) lives in an explicit state arrdict.
 
 The observe — raycast, shade and the seen-texel mask — is one call of
-:func:`megastep_tpu_torch.ops.fused.observe_explorer`: on CUDA that is the
+:func:`megastep_tpu_torch.ops.fused.observe`: on CUDA that is the
 hand-written kernel, on the CPU its plain torch version.
 
 One deliberate divergence from the reference, kept from the JAX package: the
@@ -93,7 +93,7 @@ class Explorer:
         scn = self.core.scenery
         c = self.core
         s = self._rgb.subsample
-        out = fused.observe_explorer(
+        out = fused.observe(
             scn.lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
             self._table, agents.angles, agents.positions, c.res,
             c.half_screen_width, c.agent_radius, skip_dyn=scn.n_dynamic)

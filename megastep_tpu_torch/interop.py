@@ -1,7 +1,7 @@
 """State carried across from the JAX package, through numpy.
 
 The engine runs no model, so its "weights" are the compiled scenery and the env
-state. These helpers turn the JAX package's ``Scenery`` fields and Explorer state,
+state. These helpers turn the JAX package's ``Scenery`` fields and env state,
 given as numpy arrays (``np.asarray`` of each JAX array, done by the caller), into
 the port's tensors. This module never sees a JAX array.
 """
@@ -35,9 +35,10 @@ def scenery_from_numpy(fields, n_agents, n_dynamic_texels, device='cuda'):
 
 
 def state_from_numpy(state, device='cuda'):
-    """An Explorer state arrdict (``agents``, ``progress``, ``seen``,
-    ``potential``, ``lengths``) from a nested dict of numpy arrays with the JAX
-    Explorer state's layout."""
+    """An env state arrdict from a nested dict of numpy arrays with the layout of
+    the JAX env's state: Explorer's (``agents``, ``progress``, ``seen``,
+    ``potential``, ``lengths``) or Deathmatch's (``agents``, ``progress``,
+    ``health``, ``damage``, ``matchings``), each leaf keeping its dtype."""
     device = resolve_device(device)
 
     def convert(x):

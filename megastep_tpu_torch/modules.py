@@ -1,4 +1,5 @@
-"""Env-building modules: movement, observers and spawns — the ones Explorer needs.
+"""Env-building modules: movement, observers and spawns — the ones Explorer and
+Deathmatch need.
 
 Counterpart of :mod:`megastep_tpu.modules`. A module object holds static
 configuration (action tables, spawn tables, scales) as tensors on the core's
@@ -69,7 +70,7 @@ def depth_transform(distances, agent_radius, max_depth):
 
 def fused_obs(out, subsample, agent_radius, max_depth):
     """The (rgb, depth) observation pair from a fused observe result
-    (:func:`megastep_tpu_torch.ops.fused.observe_explorer`), pooled by a
+    (:func:`megastep_tpu_torch.ops.fused.observe`), pooled by a
     reshape-mean over ``subsample`` rays — the counterpart of the JAX package's
     ``fused_obs``/``fused_obs_raw``.
 

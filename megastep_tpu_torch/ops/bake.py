@@ -4,10 +4,13 @@ Counterpart of :mod:`megastep_tpu.ops.bake` (the reference baking kernel and
 ``light_intensity``, ``kernels.cu:232-293``): each texel center accumulates
 ``LUMINANCE * intensity / max(d^2, 1)`` from every light that has unobstructed
 line-of-sight (occlusion tested against *static* lines only), plus 0.1 ambient,
-clamped to 1. Runs as torch ops on the scenery's device, once at scene build.
+clamped to 1. Runs as torch ops on the scenery's device.
 
-The per-frame re-bake of the agent-model texels (Deathmatch's
-``dynamic_texel_intensity``) is not ported yet.
+Two uses:
+  * :func:`bake`, the static bake, once at scene build;
+  * :func:`dynamic_texel_intensity`, the per-frame re-bake of the agent-model
+    texels (the first ``n_dynamic_texels`` of every env) from this frame's drawn
+    models, which gives moving agents live lighting (Deathmatch).
 """
 import numpy as np
 import torch
@@ -17,14 +20,22 @@ from . import geom
 from .geom import div
 
 
-def texel_points(lines, tex_line, line_tex_starts, line_tex_widths, t0, T):
+def texel_points(lines, tex_line, line_tex_starts, line_tex_widths, t0, T,
+                 l_max=None):
     """World coordinates of texel centers ``t0 : t0+T`` for every env (the JAX
     package's gather path).
 
     :param lines: (N, L, 2, 2) line array to read geometry from.
     :param tex_line: (N, Tmax) owning line of each texel.
+    :param l_max: a bound on the owning-line index of the requested texels
+        (all ``tex_line[:, t0:t0+T] < l_max``). The dynamic re-bake passes
+        ``n_dynamic`` with just the drawn agent-model lines.
     :return: (N, T, 2) texel centers.
     """
+    if l_max is not None:
+        lines = lines[:, :l_max]
+        line_tex_starts = line_tex_starts[:, :l_max]
+        line_tex_widths = line_tex_widths[:, :l_max]
     tl = tex_line[:, t0:t0 + T].long()                                    # (N, T)
     starts = torch.gather(line_tex_starts, 1, tl)
     widths = torch.gather(line_tex_widths, 1, tl)
@@ -112,3 +123,29 @@ def bake(scenery, env_chunk=512, tex_chunk=512):
     mask = (torch.arange(Tmax, device=baked.device)[None]
             < scenery.tex_width[:, None])
     return scenery.replace(baked=torch.where(mask, baked, 1.))
+
+
+def dynamic_texel_intensity(scenery, lines_now, k_max=None):
+    """Live illumination of the dynamic (agent-model) texels, given this frame's
+    drawn line array. Returns (N, n_dynamic_texels).
+
+    :param k_max: a bound on the per-env light count (the true maximum, known at
+        env build); the padded light slots past it are left out.
+    """
+    nd = scenery.n_dynamic
+    return dynamic_texel_intensity_parts(
+        scenery, lines_now[:, :nd], lines_now[:, nd:], k_max=k_max)
+
+
+def dynamic_texel_intensity_parts(scenery, dyn_lines, walls, k_max=None):
+    """:func:`dynamic_texel_intensity` with the line array given in two parts:
+    the drawn agent models (``(N, n_dynamic, 2, 2)``,
+    :func:`megastep_tpu_torch.ops.render.draw_dynamic`) and the static walls
+    (``scenery.lines[:, n_dynamic:]``, which the draw never touches). Dynamic
+    texels lie on the model lines, and only the walls occlude."""
+    nd = scenery.n_dynamic
+    C = texel_points(dyn_lines, scenery.tex_line, scenery.line_tex_starts,
+                     scenery.line_tex_widths, 0, scenery.n_dynamic_texels, l_max=nd)
+    lights = scenery.lights if k_max is None else scenery.lights[:, :k_max]
+    return intensity_at(C, walls, scenery.lines_width - nd, 0, lights,
+                        scenery.lights_width)

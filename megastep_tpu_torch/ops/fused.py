@@ -1,16 +1,19 @@
-"""The fused observe: raycast + shade + seen-texel mask in one CUDA kernel.
+"""The fused observe: raycast + shade (+ seen-texel mask) in one CUDA kernel.
 
 Counterpart of :mod:`megastep_tpu.ops.fused`. The JAX package's Pallas kernel
 (``_observe_kernel``) becomes ``csrc/observe.cu``, hand-written for Hopper; this
-module holds its wrapper, :func:`observe_explorer`, and its plain torch version,
-:func:`observe_explorer_plain`, which the CPU tests use and the kernel is held
-against on the card.
+module holds its wrapper, :func:`observe`, and its plain torch version,
+:func:`observe_plain`, which the CPU tests use and the kernel is held against on
+the card.
 
-Only the Explorer mode is ported: ``want_seen`` on, ``skip_dyn`` leading line slots
-left out, a static packed texel table. The TPU layouts of the JAX kernel (the
-three-way bf16 table split, the blocked ``table8`` and its hierarchical one-hots,
-the env-block unroll) are not carried over: Hopper gathers texels directly from an
-(N, T, 4) f32 table (:func:`megastep_tpu_torch.ops.render.pack_table`).
+Every mode of the JAX kernel is ported: the Explorer mode (``want_seen``,
+``skip_dyn``), Deathmatch's per-frame intensities of the agent-model texels
+(``baked_dyn``, the JAX ``table_patch``), the in-kernel draw (``draw_model``) and
+the shared reciprocal (``fast_div``). The TPU layouts of the JAX kernel (the
+three-way bf16 table split, the blocked ``table8`` and its hierarchical one-hots
+and patch rows, the env-block unroll, size buckets) are not carried over: Hopper
+gathers texels directly from an (N, T, 4) f32 table
+(:func:`megastep_tpu_torch.ops.render.pack_table`).
 """
 import ctypes
 
@@ -43,30 +46,47 @@ def seen_mask(rc, tex_starts, tex_widths, T):
     return seen[:, :T]
 
 
-def observe_explorer_plain(lines, lines_width, tex_starts, tex_widths, table,
-                           angles, positions, res, half_screen_width,
-                           agent_radius, skip_dyn=0):
-    """:func:`observe_explorer` as torch ops: :func:`render.raycast` over the line
-    slots from ``skip_dyn`` on, :func:`render.shade_table` through gathers, then
-    :func:`seen_mask`. Materializes (N, A, R, L) raycast intermediates."""
+def _check_modes(skip_dyn, draw_model):
+    if skip_dyn and draw_model:
+        raise ValueError('skip_dyn slices off the very slots draw_model would '
+                         'draw into')
+
+
+def observe_plain(lines, lines_width, tex_starts, tex_widths, table, angles,
+                  positions, res, half_screen_width, agent_radius, want_seen=True,
+                  skip_dyn=0, baked_dyn=None, draw_model=0, fast_div=False):
+    """:func:`observe` as torch ops: :func:`render.place` of the model slots (if
+    ``draw_model``), :func:`render.raycast` over the line slots from ``skip_dyn``
+    on, :func:`render.shade_table` through gathers over the table with
+    ``baked_dyn`` written in, then :func:`seen_mask` (if ``want_seen``).
+    Materializes (N, A, R, L) raycast intermediates."""
+    _check_modes(skip_dyn, draw_model)
+    if draw_model:
+        N, A = angles.shape
+        n = A * draw_model
+        head = lines[:, :n].reshape(N, A, draw_model, 2, 2)
+        lines = torch.cat([render.place(head, angles, positions), lines[:, n:]], 1)
     rc = render.raycast(lines[:, skip_dyn:], lines_width - skip_dyn, angles,
-                        positions, res, half_screen_width, agent_radius)
+                        positions, res, half_screen_width, agent_radius, fast_div)
     hit = rc.indices >= 0
     rc['indices'] = torch.where(hit, rc.indices + skip_dyn, -1)
+    if baked_dyn is not None:
+        table = table.clone()
+        table[:, :baked_dyn.shape[1], 3] = baked_dyn
     screen = render.shade_table(tex_starts, tex_widths, table, rc)
-    return arrdict(
-        indices=rc.indices,
-        distances=rc.distances,
-        screen=screen.permute(0, 1, 3, 2).contiguous(),
-        seen=seen_mask(rc, tex_starts, tex_widths, table.shape[1]))
+    out = arrdict(indices=rc.indices, distances=rc.distances,
+                  screen=screen.permute(0, 1, 3, 2).contiguous())
+    if want_seen:
+        out['seen'] = seen_mask(rc, tex_starts, tex_widths, table.shape[1])
+    return out
 
 
 def _lib():
     lib = kernels.load('observe')
-    fn = lib.observe_explorer
+    fn = lib.observe
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p] * 7 + [i] * 6 + [f, f] + [p] * 5
+        fn.argtypes = [p] * 8 + [i] * 9 + [f, f] + [p] * 5
         fn.restype = ctypes.c_int
     return fn
 
@@ -82,42 +102,49 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f'{name} must be contiguous')
 
 
-def observe_explorer(lines, lines_width, tex_starts, tex_widths, table, angles,
-                     positions, res, half_screen_width, agent_radius, skip_dyn=0,
-                     table_patch=None, draw_model=0, fast_div=False):
-    """Fused raycast + shade + seen mask over the whole env batch.
+def observe(lines, lines_width, tex_starts, tex_widths, table, angles, positions,
+            res, half_screen_width, agent_radius, want_seen=True, skip_dyn=0,
+            baked_dyn=None, draw_model=0, fast_div=False):
+    """Fused raycast + shade (+ seen mask) over the whole env batch.
 
     On CUDA tensors this launches ``csrc/observe.cu`` on the current stream,
-    without synchronising, and adds one to ``observe_explorer.launches``. On CPU
-    tensors it runs :func:`observe_explorer_plain`. There is no fallback from one
-    to the other.
+    without synchronising, and adds one to ``observe.launches``. On CPU tensors
+    it runs :func:`observe_plain`. There is no fallback from one to the other.
 
-    :param lines: (N, L, 2, 2) f32, the static scenery lines. Padded slots are
-        zero; the kernel also stops at ``lines_width``.
+    :param lines: (N, L, 2, 2) f32, this frame's lines; with ``draw_model``, the
+        static scenery lines, whose head slots hold the unrotated model. Padded
+        slots are zero; the kernel also stops at ``lines_width``.
     :param lines_width: (N,) i32 true line counts.
     :param tex_starts, tex_widths: (N, L) i32 texel range of each line.
     :param table: (N, T, 4) f32 ``[r, g, b, baked]`` per texel
-        (:func:`render.pack_table`).
+        (:func:`render.pack_table`), packed once at env build.
     :param angles: (N, A) f32 degrees. :param positions: (N, A, 2) f32 meters.
+    :param want_seen: whether to return the seen mask; without it nothing is
+        allocated for it.
     :param skip_dyn: leading line slots left out of the raycast (the agent models
         of a single-agent env, which the camera's near plane hides). Reported
         indices stay in the full line array's id space.
-    :param table_patch, draw_model, fast_div: the JAX kernel's Deathmatch and
-        opt-in modes; not ported yet.
+    :param baked_dyn: (N, T_dyn) f32, this frame's intensity of the first
+        ``T_dyn`` texels (the agent models' re-bake, Deathmatch): it replaces the
+        table's baked channel there, while the colours stay the table's.
+    :param draw_model: lines per agent model. If set, the kernel rotates and
+        moves the ``A * draw_model`` head slots of ``lines`` by their owning
+        agent's pose itself, with :func:`render.place`'s arithmetic. Excludes
+        ``skip_dyn``.
+    :param fast_div: one shared reciprocal in place of the raycast's two
+        divisions (see :func:`render.intersections`).
     :return: arrdict with ``indices`` (N, A, R) i32 (-1 on a miss), ``distances``
-        (N, A, R) f32 (inf on a miss), ``screen`` (N, A, 3, R) f32 and ``seen``
-        (N, T) bool.
+        (N, A, R) f32 (inf on a miss), ``screen`` (N, A, 3, R) f32 and, if
+        ``want_seen``, ``seen`` (N, T) bool.
     """
-    if table_patch is not None or draw_model or fast_div:
-        raise NotImplementedError('observe_explorer ports the Explorer mode only; '
-                                  'table_patch, draw_model and fast_div wait for '
-                                  'the Deathmatch slice')
+    _check_modes(skip_dyn, draw_model)
     if lines.device.type == 'cpu':
-        return observe_explorer_plain(lines, lines_width, tex_starts, tex_widths,
-                                      table, angles, positions, res,
-                                      half_screen_width, agent_radius, skip_dyn)
+        return observe_plain(lines, lines_width, tex_starts, tex_widths, table,
+                             angles, positions, res, half_screen_width,
+                             agent_radius, want_seen, skip_dyn, baked_dyn,
+                             draw_model, fast_div)
     if lines.device.type != 'cuda':
-        raise ValueError(f'observe_explorer runs on cuda or cpu, not {lines.device}')
+        raise ValueError(f'observe runs on cuda or cpu, not {lines.device}')
 
     dev = lines.device
     N, L = lines.shape[:2]
@@ -131,8 +158,17 @@ def observe_explorer(lines, lines_width, tex_starts, tex_widths, table, angles,
     _check('table', table, f32, (N, T, 4), dev)
     _check('angles', angles, f32, (N, A), dev)
     _check('positions', positions, f32, (N, A, 2), dev)
+    T_dyn = 0
+    if baked_dyn is not None:
+        T_dyn = baked_dyn.shape[-1]
+        _check('baked_dyn', baked_dyn, f32, (N, T_dyn), dev)
+        if T_dyn > T:
+            raise ValueError(f'baked_dyn has {T_dyn} texels, the table {T}')
     if not 0 <= skip_dyn <= L:
         raise ValueError(f'skip_dyn={skip_dyn} outside [0, {L}]')
+    if not 0 <= A * draw_model <= L:
+        raise ValueError(f'draw_model={draw_model} lines for {A} agents '
+                         f'exceed {L} line slots')
     if (L - skip_dyn) * 24 > 48 * 1024:
         raise ValueError(f'{L - skip_dyn} line slots exceed the kernel\'s '
                          '48 KB of shared memory')
@@ -141,19 +177,24 @@ def observe_explorer(lines, lines_width, tex_starts, tex_widths, table, angles,
         indices = torch.empty((N, A, res), dtype=i32, device=dev)
         distances = torch.empty((N, A, res), dtype=f32, device=dev)
         screen = torch.empty((N, A, 3, res), dtype=f32, device=dev)
-        seen = torch.zeros((N, T), dtype=torch.bool, device=dev)
+        seen = torch.zeros((N, T), dtype=torch.bool, device=dev) if want_seen else None
         err = _lib()(
             lines.data_ptr(), lines_width.data_ptr(), tex_starts.data_ptr(),
-            tex_widths.data_ptr(), table.data_ptr(), angles.data_ptr(),
-            positions.data_ptr(), N, A, L, T, res, skip_dyn,
-            float(half_screen_width), float(agent_radius), indices.data_ptr(),
-            distances.data_ptr(), screen.data_ptr(), seen.data_ptr(),
+            tex_widths.data_ptr(), table.data_ptr(),
+            None if baked_dyn is None else baked_dyn.data_ptr(),
+            angles.data_ptr(), positions.data_ptr(), N, A, L, T, T_dyn, res,
+            skip_dyn, draw_model, int(fast_div), float(half_screen_width),
+            float(agent_radius), indices.data_ptr(), distances.data_ptr(),
+            screen.data_ptr(), None if seen is None else seen.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f'observe_explorer kernel launch failed: CUDA error {err}')
-    observe_explorer.launches += 1
-    return arrdict(indices=indices, distances=distances, screen=screen, seen=seen)
+        raise RuntimeError(f'observe kernel launch failed: CUDA error {err}')
+    observe.launches += 1
+    out = arrdict(indices=indices, distances=distances, screen=screen)
+    if want_seen:
+        out['seen'] = seen
+    return out
 
 
 #: Kernel launches so far; a caller resets it to 0 before a run it counts.
-observe_explorer.launches = 0
+observe.launches = 0

@@ -20,7 +20,8 @@ import math
 import torch
 
 from ..arrdict import arrdict
-from .geom import div
+from . import bake
+from .geom import div, rotate
 
 Z_TOLERANCE = 1e-4
 PARALLEL_EPS = 1e-3
@@ -33,16 +34,32 @@ def ray_y(res, device='cpu', dtype=torch.float32):
     return div(res - 2 * r - 1, res)
 
 
+def place(model, angles, positions):
+    """Agent-model lines rotated by each agent's angle and moved to its position
+    (``draw_kernel``'s arithmetic, ``kernels.cu:297-318``): endpoints as
+    ``(c·x − s·y) + px``, ``(s·x + c·y) + py``.
+
+    :param model: (M, 2, 2) one model for every agent, or (N, A, M, 2, 2) one
+        per agent.
+    :param angles: (N, A) degrees. :param positions: (N, A, 2) meters.
+    :return: (N, A·M, 2, 2), agent ``a``'s lines at slots ``a·M`` to ``a·M + M``.
+    """
+    dyn = rotate(angles[..., None, None], model) + positions[:, :, None, None, :]
+    return dyn.reshape(dyn.shape[0], -1, 2, 2)
+
+
+def draw_dynamic(scenery, agents):
+    """Just the rotated+translated agent-model lines, (N, n_dynamic, 2, 2): the
+    part of :func:`draw` that the dynamic re-bake needs."""
+    return place(scenery.model, agents.angles, agents.positions)
+
+
 def draw(scenery, agents):
     """The line array with the rotated+translated agent models written into the
     dynamic head slots (``draw_kernel``, ``kernels.cu:297-318``). Returns a new
     (N, L, 2, 2) tensor; the scenery is untouched."""
-    from .geom import rotate
-    rotated = rotate(agents.angles[..., None, None], scenery.model)
-    dyn = rotated + agents.positions[:, :, None, None, :]
-    lines = scenery.lines.clone()
-    lines[:, :scenery.n_dynamic] = dyn.reshape(dyn.shape[0], scenery.n_dynamic, 2, 2)
-    return lines
+    return torch.cat([draw_dynamic(scenery, agents),
+                      scenery.lines[:, scenery.n_dynamic:]], 1)
 
 
 def pose_basis(angles):
@@ -61,7 +78,7 @@ def ray_directions(angles, res, half_screen_width):
 
 
 def intersections(lines_now, lines_width, angles, positions, res,
-                  half_screen_width, agent_radius):
+                  half_screen_width, agent_radius, fast_div=False):
     """Every (env, agent, pixel) ray against every line: the hit fractions ``s``
     (along the ray) and ``t`` (along the line), and ``valid``, whether the ray
     hits the line in front of the near plane — each (N, A, R, L) — plus the ray
@@ -69,6 +86,11 @@ def intersections(lines_now, lines_width, angles, positions, res,
 
     ``s`` and ``t`` are junk (inf or NaN) where ``valid`` is False for a
     near-parallel line.
+
+    :param fast_div: the observe kernel's opt-in mode (``fused.py:307-313`` in
+        the JAX package): one true division ``1 / uxv`` shared by two products,
+        in place of the two quotients. About an ulp off them, so it can flip a
+        winner on the tolerance edge.
     """
     L = lines_now.shape[1]
     rux, ruy = ray_directions(angles, res, half_screen_width)             # (N, A, R)
@@ -87,8 +109,11 @@ def intersections(lines_now, lines_width, angles, positions, res,
     t_num = pqx * ry - pqy * rx
 
     distant = uxv.abs() < PARALLEL_EPS
-    sq = s_num / uxv
-    tq = t_num / uxv
+    if fast_div:
+        recip = div(1., uxv)
+        sq, tq = s_num * recip, t_num * recip
+    else:
+        sq, tq = s_num / uxv, t_num / uxv
     live = (torch.arange(L, device=lines_now.device)
             < lines_width[:, None, None, None])
     valid = ~distant & (0 <= tq) & (tq <= 1) & (near[..., None] < sq) & live
@@ -97,7 +122,7 @@ def intersections(lines_now, lines_width, angles, positions, res,
 
 
 def raycast(lines_now, lines_width, angles, positions, res, half_screen_width,
-            agent_radius):
+            agent_radius, fast_div=False):
     """Nearest-hit raycast of every (env, agent, pixel) against every line
     (``raycast_kernel``, ``kernels.cu:326-383``).
 
@@ -107,9 +132,10 @@ def raycast(lines_now, lines_width, angles, positions, res, half_screen_width,
     :return: arrdict with ``indices`` (line id or -1), ``locations`` (hit fraction
         along the line, NaN if none), ``dots`` (normalized ray·line, NaN if none),
         ``distances`` (meters, +inf if none) — all (N, A, R).
+    :param fast_div: see :func:`intersections`.
     """
     x = intersections(lines_now, lines_width, angles, positions, res,
-                      half_screen_width, agent_radius)
+                      half_screen_width, agent_radius, fast_div)
     s_masked = torch.where(x.valid, x.s, math.inf)
     s_min = s_masked.amin(-1)                                             # (N, A, R)
     eligible = s_masked < (s_min + Z_TOLERANCE)[..., None]
@@ -190,16 +216,26 @@ def shade(scenery, rc, baked_now):
                        pack_table(scenery, baked_now), rc)
 
 
-def render(scenery, agents, res, half_screen_width, agent_radius):
-    """Full render pass: draw agent models, raycast, shade with the static bake
-    (counterpart of ``megastep_tpu.ops.render.render`` with ``rebake_dynamic``
-    off, which is its default for single-agent envs).
+def render(scenery, agents, res, half_screen_width, agent_radius,
+           rebake_dynamic=None):
+    """Full render pass: draw agent models, raycast, re-light the dynamic texels,
+    shade (counterpart of ``megastep_tpu.ops.render.render``).
 
+    :param rebake_dynamic: whether to re-bake the live lighting of the
+        agent-model texels this frame. Defaults to ``n_agents > 1``: with a
+        single agent the camera's near plane hides its own model, so that
+        lighting is never sampled.
     :return: arrdict of ``indices/locations/dots/distances`` (N, A, R) and
         ``screen`` (N, A, R, 3).
     """
     lines_now = draw(scenery, agents)
     rc = raycast(lines_now, scenery.lines_width, agents.angles,
                  agents.positions, res, half_screen_width, agent_radius)
-    rc['screen'] = shade(scenery, rc, scenery.baked)
+    if rebake_dynamic is None:
+        rebake_dynamic = scenery.n_agents > 1
+    baked_now = scenery.baked
+    if rebake_dynamic:
+        dyn = bake.dynamic_texel_intensity(scenery, lines_now)
+        baked_now = torch.cat([dyn, baked_now[:, scenery.n_dynamic_texels:]], 1)
+    rc['screen'] = shade(scenery, rc, baked_now)
     return rc

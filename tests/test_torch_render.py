@@ -1,9 +1,10 @@
-"""The port's renderer (the torch ground truth) against the JAX package's, on the
-CPU, on a toy box scene and a floorplan scene.
+"""The port's renderer (the torch ground truth) and its dynamic re-bake against
+the JAX package's, on the CPU, on a toy box scene and a floorplan scene.
 
 Both packages get the same scenery (built from the same RandomState) and the same
 poses, made with numpy. Hit indices must match exactly; distances, locations,
-dots and the shaded screen are held to allclose(rtol=1e-5, atol=1e-6).
+dots, the shaded screen and the re-baked intensities (f32 sums over lights, in
+possibly different orders) are held to allclose(rtol=1e-5, atol=1e-6).
 """
 import numpy as np
 import pytest
@@ -14,10 +15,10 @@ import jax.numpy as jnp
 from megastep_tpu import floorplans as jfloorplans, scene as jscene
 from megastep_tpu import toys as jtoys
 from megastep_tpu.arrdict import arrdict as jarrdict
-from megastep_tpu.ops import render as jrender
+from megastep_tpu.ops import bake as jbake, render as jrender
 from megastep_tpu_torch import core, floorplans, scene, toys
 from megastep_tpu_torch.arrdict import arrdict
-from megastep_tpu_torch.ops import render
+from megastep_tpu_torch.ops import bake, render
 
 torch.set_num_threads(1)
 
@@ -25,11 +26,11 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 RES = 48
 
 
-def _build(kind, n_agents):
+def _build(kind, n_agents, seed=8):
     if kind == 'box':
         ours, theirs = [toys.box(), toys.column()], [jtoys.box(), jtoys.column()]
     else:
-        ours, theirs = floorplans.sample(3, seed=8), jfloorplans.sample(3, seed=8)
+        ours, theirs = floorplans.sample(3, seed=seed), jfloorplans.sample(3, seed=seed)
     scn = scene.scenery(ours, n_agents, random=np.random.RandomState(4), device='cpu')
     jscn = jscene.scenery(theirs, n_agents, random=np.random.RandomState(4))
     rng = np.random.RandomState(len(kind) + n_agents)
@@ -94,3 +95,61 @@ def test_render_box_goldens():
     assert int(r.indices.sum()) == 620
     np.testing.assert_allclose(r.locations[0, 0].mean().item(), 0.4114983, rtol=1e-5)
     np.testing.assert_allclose(r.dots[0, 0].mean().item(), -0.1577556, rtol=1e-4)
+
+
+def _agents(poses):
+    return (arrdict({k: torch.from_numpy(v) for k, v in poses.items()}),
+            jarrdict({k: jnp.asarray(v) for k, v in poses.items()}))
+
+
+def test_draw_dynamic_matches_jax():
+    scn, jscn, poses = _build('floorplan', 2)
+    agents, jagents = _agents(poses)
+    dyn = render.draw_dynamic(scn, agents)
+    assert dyn.shape == (scn.n_envs, scn.n_dynamic, 2, 2)
+    _close(dyn, jrender.draw_dynamic(jscn, jagents))
+    np.testing.assert_array_equal(render.draw(scn, agents)[:, :scn.n_dynamic].numpy(),
+                                  dyn.numpy())
+
+
+@pytest.mark.parametrize('k_max', [None, 'true'])
+def test_dynamic_rebake_matches_jax(k_max):
+    """The per-frame re-bake of the model texels, from the drawn models and the
+    static walls, with all padded light slots or only the live ones (these
+    floorplans have at most 5 lights, padded to 8)."""
+    scn, jscn, poses = _build('floorplan', 2, seed=2)
+    agents, jagents = _agents(poses)
+    k = int(scn.lights_width.max()) if k_max else None
+    assert k is None or k < scn.lights.shape[1], 'want padded light slots'
+    nd = scn.n_dynamic
+    got = bake.dynamic_texel_intensity_parts(
+        scn, render.draw_dynamic(scn, agents), scn.lines[:, nd:], k_max=k)
+    want = jbake.dynamic_texel_intensity_parts(
+        jscn, jrender.draw_dynamic(jscn, jagents), jscn.lines[:, nd:], k_max=k)
+    assert got.shape == (scn.n_envs, scn.n_dynamic_texels)
+    _close(got, want)
+    # The whole-array form is the same function.
+    np.testing.assert_array_equal(
+        bake.dynamic_texel_intensity(scn, render.draw(scn, agents), k_max=k).numpy(),
+        got.numpy())
+
+
+def test_render_rebake_matches_jax():
+    """render() at two agents re-bakes the model texels by default, as JAX's
+    does; the re-bake changes the shading of the model pixels. The two agents
+    face each other a meter apart."""
+    scn, jscn, poses = _build('box', 2)
+    poses['angles'][:] = (0., 180.)
+    poses['positions'][:] = ((2., 2.5), (3., 2.5))
+    agents, jagents = _agents(poses)
+    c = core.Core(scn, res=RES)
+    args = (RES, c.half_screen_width, c.agent_radius)
+    r = render.render(scn, agents, *args)
+    jr = jrender.render(jscn, jagents, *args, rebake_dynamic=True)
+    np.testing.assert_array_equal(r.indices.numpy(), np.asarray(jr.indices))
+    for k in ('distances', 'screen'):
+        _close(r[k], jr[k], k)
+    model = (r.indices >= 0) & (r.indices < scn.n_dynamic)
+    assert model.any(), 'agents should see each other'
+    static = render.render(scn, agents, *args, rebake_dynamic=False)
+    assert not torch.equal(r.screen[model], static.screen[model])
