@@ -1,9 +1,13 @@
 """Smoke run of the PyTorch/CUDA port (``megastep_tpu_torch``) on one NVIDIA GPU.
 
-Builds the port's CUDA kernel from ``megastep_tpu_torch/csrc``, holds each of its
-modes against its plain torch version on the card, and drives the engine's two
-main paths at the benchmark's full size:
+Builds the port's CUDA kernels from ``megastep_tpu_torch/csrc``, holds each of
+them (each mode of the observe kernel) against its plain torch version on the
+card, and drives the port's three paths at full size:
 
+- the roofline (``megastep_tpu_torch.perf.roofline``): the f32 multiply probe
+  (K2) on the JAX probe's (64, 8, 256, 512) input, the device-memory and bf16
+  matmul probes, and, in each env's phase below, the analytic table of its
+  observe kernel;
 - Explorer: 16,384 envs on procedural floorplans, res 256 pooled by 4 into RGB +
   depth + IMU, momentum movement and the seen-texel reward;
 - Deathmatch: 16,384 agent-envs (4,096 scenes of 4 agents), res 512 pooled by 4
@@ -17,16 +21,20 @@ line. Run it from the repository root:
     python3 chip_smoke.py            # add --profile for a per-kernel breakdown
 
 It prints progress lines, one ``{"main_path": {...}}`` JSON line per env, a
-``{"kernels": [...]}`` JSON line, the card's name and power limit as
-``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits with code 2 and prints no result.
+``{"roofline": {...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
+name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits with code 2 and prints no
+result.
 """
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -40,16 +48,9 @@ N_GEOMETRIES = 512         # floorplans, tiled over the scenes as bench.py does
 BOUNDARY = 1e-6            # a second candidate this close to the tolerance edge
 MAX_BOUNDARY_SHARE = 1e-4  # rays allowed to differ, all of them on that edge
 TOL = dict(rtol=1e-5, atol=1e-6)
-
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-#: f32 operations per ray-line test in the kernel's line loop: 2 subtractions
-#: for the offset, 3 cross products of 2 multiplies and a subtraction, the
-#: absolute value, 2 divides and 4 compares; fast_div has 1 divide and 2
-#: multiplies in place of the 2 divides.
-OPS_PER_TEST = 18
-OPS_PER_TEST_FAST_DIV = 19
+VPU_SHAPE, VPU_CHAIN = (64, 8, 256, 512), 256  # the JAX probe's defaults
+VPU_RAGGED = 4 * 100_003 + 1  # elements: not whole float4s
+KERNELS = ('observe', 'vpu_probe')
 
 #: The Deathmatch modes of the kernel, as observe() arguments past the inputs.
 #: 'patch' and 'fast_div' read this frame's drawn lines, 'draw_model' the static
@@ -66,14 +67,34 @@ def log(*args):
     print(*args, flush=True)
 
 
-def nvidia_smi():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60)
-    if out.returncode:
-        raise RuntimeError(f'nvidia-smi failed: {out.stderr.strip()}')
-    return out.stdout.strip().splitlines()[0]
+def sass_opcodes(kernels, name):
+    """The opcodes, with their modifiers, of kernel ``name``'s built library in
+    the order ``cuobjdump -sass`` lists them."""
+    tool = Path(kernels.nvcc()).resolve().with_name('cuobjdump')
+    text = subprocess.run([str(tool), '-sass', str(kernels.library_path(name))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    return re.findall(r'/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)', text)
+
+
+def count(ops, names):
+    return {n: sum(op == n or op.startswith(n + '.') for op in ops) for n in names}
+
+
+def divide_fast_path(ops):
+    """The shortest run of opcodes of an IEEE divide that takes its fast path:
+    from the MUFU.RCP and the BSSY before an FCHK to the branch past the slow
+    path after it, and the BSYNC that branch lands on."""
+    best = []
+    for i, op in enumerate(ops):
+        rcp = [j for j in range(i) if ops[j] == 'MUFU.RCP']
+        bssy = [j for j in range(i) if ops[j] == 'BSSY']
+        bra = [j for j in range(i, len(ops)) if ops[j] == 'BRA']
+        if op != 'FCHK' or not (rcp and bssy and bra) or 'BSYNC' not in ops[bra[0]:]:
+            continue
+        run = ops[min(rcp[-1], bssy[-1]):bra[0] + 1] + ['BSYNC']
+        if not best or len(run) < len(best):
+            best = run
+    return best
 
 
 def time_ms(torch, fn, reps):
@@ -94,30 +115,17 @@ def tiled(geoms, n):
     return [geoms[i % len(geoms)] for i in range(n)]
 
 
-def explorer_args(env, agents):
-    scn, c = env.core.scenery, env.core
-    return (scn.lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
-            env._table, agents.angles, agents.positions, c.res,
-            c.half_screen_width, c.agent_radius)
-
-
-def deathmatch_modes(torch, bake, render, env, agents):
+def deathmatch_modes(env, agents):
     """Each Deathmatch mode's observe() arguments at ``agents``' poses, as
-    ``(args, kwargs)``, and the drawn lines that every mode raycasts."""
-    scn, c = env.core.scenery, env.core
-    nd = scn.n_dynamic
-    dyn_lines = render.draw_dynamic(scn, agents)
-    dyn = bake.dynamic_texel_intensity_parts(scn, dyn_lines, scn.lines[:, nd:],
-                                             k_max=env._k_lights)
-    drawn = torch.cat([dyn_lines, scn.lines[:, nd:]], 1)
-    rest = (scn.lines_width, scn.line_tex_starts, scn.line_tex_widths, env._table,
-            agents.angles, agents.positions, c.res, c.half_screen_width,
-            c.agent_radius)
-    kw = dict(want_seen=False, baked_dyn=dyn)
-    modes = {'patch': ((drawn, *rest), kw),
-             'draw_model': ((scn.lines, *rest),
+    ``(args, kwargs)``, and the drawn lines that every mode raycasts. ``env``
+    runs the default mode, the patch launch on drawn lines."""
+    scn = env.core.scenery
+    args, kw = env.observe_args(agents)
+    drawn = args[0]
+    modes = {'patch': (args, kw),
+             'draw_model': ((scn.lines, *args[1:]),
                             dict(kw, draw_model=scn.n_model_lines)),
-             'fast_div': ((drawn, *rest), dict(kw, fast_div=True))}
+             'fast_div': (args, dict(kw, fast_div=True))}
     return modes, drawn
 
 
@@ -187,25 +195,6 @@ def check_modes(torch, fused, render, modes, drawn, where):
     return outs, nums
 
 
-def bound(scn, out, skip, ops_per_test=OPS_PER_TEST, t_dyn=0):
-    """Least time the card could take for one observe on these inputs: bytes over
-    the memory rate or operations over the f32 rate, whichever is larger."""
-    N, A, R = out.indices.shape
-    live = int((scn.lines_width - skip).clamp(min=0).sum())
-    hits = int((out.indices >= 0).sum())
-    nbytes = (live * 24            # live line slots: endpoints, texel start, width
-              + N * A * 12         # pose: angle, x, y
-              + N * t_dyn * 4      # this frame's model-texel intensities
-              + hits * 32          # two 16-byte texel taps per hit ray
-              + N * A * R * 20)    # index, distance, rgb per ray
-    if 'seen' in out:
-        nbytes += out.seen.numel() + hits  # seen mask zero-fill, one byte per hit
-    ops = A * R * live * ops_per_test
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations',
-            dict(bytes=nbytes, ops=ops, ray_line_tests=A * R * live))
-
-
 def profile_steps(torch, name, step, step_ms, n=4):
     """Device time by kernel over ``n`` calls of ``step``, from torch.profiler,
     and the share of an unprofiled step's wall time ``step_ms`` that the device
@@ -247,12 +236,14 @@ def kernel_entry(mode, launches, err, ms, plain_ms, bound_ms, bound_by):
             'bound_by': bound_by, 'library_ms': None}
 
 
-def explorer_phase(torch, opts, geoms):
+def explorer_phase(torch, opts, geoms, peaks):
     """Explorer: kernel against plain at N_CHECK and N_ENVS envs, the main path
-    at N_ENVS envs. Returns its main_path line and its kernel entry."""
+    at N_ENVS envs, then its roofline table at ``peaks``. Returns its main_path
+    line, its kernel entry and its table."""
     from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
+    from megastep_tpu_torch.perf import roofline
 
     env = envs.Explorer(N_CHECK, geometries=tiled(geoms, N_CHECK), res=RES,
                         subsample=SUBSAMPLE, random=np.random.RandomState(1),
@@ -263,8 +254,7 @@ def explorer_phase(torch, opts, geoms):
     angles = torch.rand(state.agents.angles.shape, generator=g, device=DEVICE) * 360 - 180
     agents = arrdict(angles=angles, positions=state.agents.positions)
     skip = env.core.scenery.n_dynamic
-    kw = dict(skip_dyn=skip)
-    _, small = check_observe(torch, fused, render, explorer_args(env, agents), kw)
+    _, small = check_observe(torch, fused, render, *env.observe_args(agents))
     log(f'check explorer at {N_CHECK} envs: {small}')
     del env, state, agents
 
@@ -327,29 +317,32 @@ def explorer_phase(torch, opts, geoms):
         f'({1e3 * step_s:.3f} ms/step)')
 
     # The kernel and its plain version at the main path's shapes.
-    args = explorer_args(env, state.agents)
+    args, kw = env.observe_args(state.agents)
     out, full = check_observe(torch, fused, render, args, kw)
     log(f'check explorer at {N_ENVS} envs: {full}')
     ms, plain_ms = time_observe(torch, fused, args, kw)
-    bound_ms, bound_by, work = bound(scn, out, skip)
+    bound_ms, bound_by, work = roofline.bound(scn, out, skip)
     log(f'observe (explorer): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
         f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
     if opts.profile:
         profile_steps(torch, 'explorer', step, 1e3 * step_s)
+    table = roofline.analytic('explorer', env, 1e3 * step_s, peaks)
     main = {'env': 'Explorer', 'n_envs': N_ENVS, 'res': RES, 'subsample': SUBSAMPLE,
             'steps': STEPS, 'env_steps_per_s': N_ENVS / step_s,
             'ms_per_step': 1e3 * step_s, 'build_s': build_s, 'bake_s': bake_s}
     return main, kernel_entry('explorer', launches, full['max_abs_err'], ms,
-                              plain_ms, bound_ms, bound_by)
+                              plain_ms, bound_ms, bound_by), table
 
 
-def deathmatch_phase(torch, opts, geoms):
+def deathmatch_phase(torch, opts, geoms, peaks):
     """Deathmatch: every mode against plain at DM_CHECK and DM_ENVS agent-envs,
-    the main path at DM_ENVS, and short runs with draw_fused and fast_div.
-    Returns its main_path line and its three kernel entries."""
+    the main path at DM_ENVS, its roofline table at ``peaks``, and short runs
+    with draw_fused and fast_div. Returns its main_path line, its three kernel
+    entries and its table."""
     from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
+    from megastep_tpu_torch.perf import roofline
 
     def build(n, seed, **kwargs):
         return envs.Deathmatch(n, n_agents=DM_AGENTS,
@@ -363,7 +356,7 @@ def deathmatch_phase(torch, opts, geoms):
     state, _ = env.reset(g)
     angles = torch.rand(state.agents.angles.shape, generator=g, device=DEVICE) * 360 - 180
     agents = arrdict(angles=angles, positions=state.agents.positions)
-    modes, drawn = deathmatch_modes(torch, bake, render, env, agents)
+    modes, drawn = deathmatch_modes(env, agents)
     check_modes(torch, fused, render, modes, drawn, f'{DM_CHECK} agent-envs')
     del env, state, agents, modes, drawn
 
@@ -449,7 +442,7 @@ def deathmatch_phase(torch, opts, geoms):
         f'({1e3 * step_s:.3f} ms/step)')
 
     # Every mode and its plain version at the main path's shapes.
-    modes, drawn = deathmatch_modes(torch, bake, render, env, state.agents)
+    modes, drawn = deathmatch_modes(env, state.agents)
     outs, checks = check_modes(torch, fused, render, modes, drawn,
                                f'{DM_ENVS} agent-envs')
     # The step's other large stage: the per-frame re-bake of the model texels.
@@ -461,9 +454,9 @@ def deathmatch_phase(torch, opts, geoms):
     for mode in DM_MODES:
         args, kw = modes[mode]
         ms, plain_ms = time_observe(torch, fused, args, kw)
-        ops = OPS_PER_TEST_FAST_DIV if mode == 'fast_div' else OPS_PER_TEST
-        bound_ms, bound_by, work = bound(scn, outs[mode], 0, ops,
-                                         scn.n_dynamic_texels)
+        bound_ms, bound_by, work = roofline.bound(scn, outs[mode], 0,
+                                                  scn.n_dynamic_texels,
+                                                  fast_div=mode == 'fast_div')
         timed[mode] = (ms, plain_ms, bound_ms, bound_by)
         log(f'observe ({mode}): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
             f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
@@ -471,6 +464,7 @@ def deathmatch_phase(torch, opts, geoms):
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     if opts.profile:
         profile_steps(torch, 'deathmatch', step, 1e3 * step_s)
+    table = roofline.analytic('deathmatch', env, 1e3 * step_s, peaks)
     del env, state
 
     # The same env with the in-kernel draw, then with fast_div, from the main
@@ -500,7 +494,76 @@ def deathmatch_phase(torch, opts, geoms):
             'rebake_ms': rebake_ms, 'shots': main_nums['shots'],
             'respawns': main_nums['respawns']}
     return main, [kernel_entry(m, launches[m], checks[m]['max_abs_err'], *timed[m])
-                  for m in DM_MODES]
+                  for m in DM_MODES], table
+
+
+def roofline_phase(torch, kernels, card):
+    """K2 against its plain version on the JAX probe's input and on ragged
+    sizes, bit for bit; its SASS; its times; then the three peak probes.
+    Returns the peaks (published and measured), the roofline line's fields and
+    K2's kernel entry."""
+    from megastep_tpu_torch.perf import roofline
+
+    ops = count(sass_opcodes(kernels, 'vpu_probe'), ('FMUL', 'FFMA', 'FADD'))
+    log(f'vpu_probe SASS: {ops}')
+    if ops['FFMA'] or ops['FMUL'] < 16 * 8:
+        raise AssertionError('the probe\'s multiply chains were fused or folded')
+    ops = sass_opcodes(kernels, 'observe')
+    path = divide_fast_path(ops)
+    log(f"observe SASS: {count(ops, ('MUFU.RCP', 'FCHK', 'FFMA', 'FMUL', 'FADD'))}; "
+        f"an IEEE divide's fast path, {len(path)} instructions: {' '.join(path)} "
+        f'(roofline.DIV_COST {roofline.DIV_COST})')
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    x = torch.randn(VPU_SHAPE, generator=g, device=DEVICE)
+    flat = torch.randn(VPU_RAGGED, generator=g, device=DEVICE)
+    err = 0.
+    for case in (x, flat, flat[1:]):  # flat[1:] is not 16-byte aligned
+        got = roofline.vpu_chain(case, VPU_CHAIN)
+        want = roofline.vpu_chain_plain(case, VPU_CHAIN)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f'vpu probe differs from plain at {tuple(case.shape)} '
+                                 f'by up to {err}')
+    del got, want
+    log(f'check vpu probe at {VPU_SHAPE}, {VPU_RAGGED} and {VPU_RAGGED - 1} '
+        f'elements (unaligned), chain {VPU_CHAIN}: bit for bit')
+    ms = time_ms(torch, lambda: roofline.vpu_chain(x, VPU_CHAIN), 20)
+    plain_ms = time_ms(torch, lambda: roofline.vpu_chain_plain(x, VPU_CHAIN), 3)
+    bound_ms, bound_by = roofline.vpu_bound(x.numel(), VPU_CHAIN)
+    log(f'vpu probe: {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, bound '
+        f'{bound_ms:.4f} ms ({bound_by}), '
+        f'{VPU_CHAIN * x.numel() / ms / 1e9:.2f} T multiplies/s')
+    del x, flat
+
+    roofline.vpu_chain.launches = 0
+    vpu = roofline.measure_vpu()
+    launches = roofline.vpu_chain.launches
+    if not launches:
+        raise AssertionError('measure_vpu launched no probe kernel')
+    hbm = roofline.measure_hbm()
+    mxu = roofline.measure_mxu()
+    peaks = dict(roofline.published_peaks(), card=card,
+                 measured=dict(f32_ops=vpu, hbm_bytes=hbm, tc_flops=mxu))
+    log(f'measured: f32 multiplies {vpu / 1e12:.3f} T/s ({launches} probe launches), '
+        f'device memory {hbm / 1e9:.1f} GB/s, bf16 matmul {mxu / 1e12:.1f} TFLOP/s')
+    line = {'card': card,
+            'published': {'f32_flops_per_s': roofline.F32_OPS_PER_S,
+                          'hbm_bytes_per_s': roofline.HBM_BYTES_PER_S,
+                          'bf16_tc_flops_per_s': roofline.BF16_TC_FLOPS},
+            'measured': {'f32_multiplies_per_s': vpu, 'hbm_bytes_per_s': hbm,
+                         'bf16_matmul_flops_per_s': mxu},
+            'div_cost': peaks['div_cost']}
+    entry = {'name': 'vpu probe', 'route': 'cuda',
+             'source': 'megastep_tpu_torch/csrc/vpu_probe.cu',
+             'replaces': 'perf/roofline.py:85', 'launches': launches,
+             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+             'bound_ms': bound_ms, 'bound_by': bound_by,
+             # No single PyTorch call computes this chain.
+             'library_ms': None}
+    return peaks, line, entry
 
 
 def main():
@@ -514,6 +577,7 @@ def main():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
     from megastep_tpu_torch import floorplans, kernels
+    from megastep_tpu_torch.perf.roofline import nvidia_smi
 
     # 1. The card.
     card = nvidia_smi()
@@ -521,26 +585,36 @@ def main():
         f'device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}')
     log(card)
 
-    # 2. Build the kernel from the sources in the checkout.
+    # 2. Build the kernels from the sources in the checkout, one nvcc each, all
+    # at once.
     t0 = time.perf_counter()
-    text = kernels.build('observe')
-    log(f'build: {time.perf_counter() - t0:.2f} s'
-        + ('' if text is not None else ' (already built)'))
-    for line in (text or '').strip().splitlines():
-        log(f'  observe: {line}')
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        texts = dict(zip(KERNELS, pool.map(kernels.build, KERNELS)))
+    log(f'build: {time.perf_counter() - t0:.2f} s')
+    for name, text in texts.items():
+        if text is None:
+            log(f'  {name}: already built')
+        for line in (text or '').strip().splitlines():
+            log(f'  {name}: {line}')
 
-    # 3. The two main paths, each with its kernel checks; bench.py's geometry
-    # list of 512 procedural floorplans, tiled.
+    # 3. The roofline: K2 and the peak probes.
+    peaks, roofline_line, vpu_kernel = roofline_phase(torch, kernels, card)
+
+    # 4. The two envs' main paths, each with its kernel checks and its roofline
+    # table; bench.py's geometry list of 512 procedural floorplans, tiled.
     geoms = floorplans.sample(N_GEOMETRIES)
     torch.cuda.reset_peak_memory_stats()
-    explorer, explorer_kernel = explorer_phase(torch, opts, geoms)
+    explorer, explorer_kernel, roofline_line['explorer'] = explorer_phase(
+        torch, opts, geoms, peaks)
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     torch.cuda.reset_peak_memory_stats()
-    deathmatch, deathmatch_kernels = deathmatch_phase(torch, opts, geoms)
+    deathmatch, deathmatch_kernels, roofline_line['deathmatch'] = deathmatch_phase(
+        torch, opts, geoms, peaks)
 
     for line in (explorer, deathmatch):
         log(json.dumps({'main_path': line}))
-    log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels]}))
+    log(json.dumps({'roofline': roofline_line}))
+    log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel]}))
     log(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

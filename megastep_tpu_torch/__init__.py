@@ -5,7 +5,8 @@ torch tensors on an NVIDIA GPU. It keeps the JAX package's module and public
 names, so each function has a counterpart of the same name: the host scene
 compile and light bake, momentum physics, the 1-D raycast renderer, the
 dynamic re-bake and the Explorer and Deathmatch envs. The fused observe, a Pallas kernel in the JAX package, is a
-hand-written CUDA kernel here (``csrc/observe.cu``).
+hand-written CUDA kernel here (``csrc/observe.cu``), and so is the roofline's
+f32 probe (``csrc/vpu_probe.cu``, in :mod:`.perf.roofline`).
 
 This package imports torch and numpy, never jax and nothing of
 ``megastep_tpu``. Entry points default to ``device='cuda'``; they run on the
@@ -21,10 +22,10 @@ from .dotdict import dotdict
 
 __all__ = ['constants', 'spaces', 'geometry', 'toys', 'dotdict', 'arrdict',
            'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'interop',
-           'kernels']
+           'kernels', 'perf']
 
 _LAZY = {'arrdict', 'core', 'scene', 'modules', 'ops', 'envs', 'floorplans',
-         'interop', 'kernels'}
+         'interop', 'kernels', 'perf'}
 
 
 def __getattr__(name):

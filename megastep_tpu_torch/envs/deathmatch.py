@@ -154,9 +154,9 @@ class Deathmatch:
         mask = (0 <= line_idxs) & (obj_idxs < self.core.n_agents)
         return torch.where(mask, obj_idxs, -1)
 
-    def _observe(self, agents, health, damage):
-        """Draw, re-bake the agent-model texels, observe in one kernel call,
-        pool, and shoot (the JAX package's ``_observe_fused``)."""
+    def observe_args(self, agents):
+        """Draws the agent models and re-bakes their texels at ``agents``'
+        poses: the step's :func:`fused.observe` call, as ``(args, kwargs)``."""
         scn = self.core.scenery
         c = self.core
         nd = scn.n_dynamic
@@ -167,11 +167,18 @@ class Deathmatch:
             lines, draw_model = scn.lines, scn.n_model_lines
         else:
             lines, draw_model = torch.cat([dyn_lines, scn.lines[:, nd:]], 1), 0
-        out = fused.observe(
-            lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
-            self._table, agents.angles, agents.positions, c.res,
-            c.half_screen_width, c.agent_radius, want_seen=False, baked_dyn=dyn,
-            draw_model=draw_model, fast_div=self.fast_div)
+        return ((lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
+                 self._table, agents.angles, agents.positions, c.res,
+                 c.half_screen_width, c.agent_radius),
+                dict(want_seen=False, baked_dyn=dyn, draw_model=draw_model,
+                     fast_div=self.fast_div))
+
+    def _observe(self, agents, health, damage):
+        """Draw, re-bake the agent-model texels, observe in one kernel call,
+        pool, and shoot (the JAX package's ``_observe_fused``)."""
+        c = self.core
+        args, kwargs = self.observe_args(agents)
+        out = fused.observe(*args, **kwargs)
         s = self._rgb.subsample
         rgb, d = modules.fused_obs(out, s, c.agent_radius, self._depth.max_depth)
         # The two rays the shoot test reads: downsample(indices, s)[..., s//2]

@@ -85,18 +85,24 @@ class Explorer:
     def device(self):
         return self.core.device
 
+    def observe_args(self, agents):
+        """The step's :func:`fused.observe` call at ``agents``' poses, as
+        ``(args, kwargs)``."""
+        scn, c = self.core.scenery, self.core
+        return ((scn.lines, scn.lines_width, scn.line_tex_starts,
+                 scn.line_tex_widths, self._table, agents.angles, agents.positions,
+                 c.res, c.half_screen_width, c.agent_radius),
+                dict(skip_dyn=scn.n_dynamic))
+
     def _observe(self, agents, state_seen, reset):
         """Observe + seen-texel reward (reference ``explorer.py:34-58``).
 
         :return: ``(obs, seen, potential, reward)``.
         """
-        scn = self.core.scenery
         c = self.core
         s = self._rgb.subsample
-        out = fused.observe(
-            scn.lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
-            self._table, agents.angles, agents.positions, c.res,
-            c.half_screen_width, c.agent_radius, skip_dyn=scn.n_dynamic)
+        args, kwargs = self.observe_args(agents)
+        out = fused.observe(*args, **kwargs)
         rgb, d = modules.fused_obs(out, s, c.agent_radius, self._depth.max_depth)
         obs = arrdict(rgb=rgb, d=d, imu=self._imu(agents))
 

@@ -5,9 +5,10 @@ one. The file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 
-Indices and the seen mask must match exactly; distances and the screen are held
-to allclose(rtol=1e-5, atol=1e-6). The in-kernel draw must equal the launch on
-torch-drawn lines bit for bit.
+Observe: indices and the seen mask must match exactly; distances and the
+screen are held to allclose(rtol=1e-5, atol=1e-6). The in-kernel draw must equal
+the launch on torch-drawn lines bit for bit. The f32 probe (K2) must equal its
+plain version bit for bit: both are the same correctly rounded f32 multiplies.
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from megastep_tpu_torch import constants, floorplans, scene, toys
 from megastep_tpu_torch.arrdict import arrdict
 from megastep_tpu_torch.ops import fused, render
+from megastep_tpu_torch.perf import roofline
 
 torch.set_num_threads(1)
 
@@ -152,3 +154,23 @@ def test_observe_wrapper_checks_inputs(scn):
     for change in bad:
         with pytest.raises((TypeError, ValueError)):
             fused.observe(**{**base, **change})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('chain', [2, 256])
+def test_vpu_probe_matches_plain_bit_for_bit(chain):
+    """Ragged sizes: 1,155 elements, then 400,013, whole and from its second
+    element on, which is not 16-byte aligned and takes the scalar path."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    g = torch.Generator('cuda').manual_seed(chain)
+    flat = torch.randn(4 * 100_003 + 1, generator=g, device='cuda')
+    cases = (torch.randn((3, 5, 7, 11), generator=g, device='cuda'), flat, flat[1:])
+    before = roofline.vpu_chain.launches
+    for x in cases:
+        got = roofline.vpu_chain(x, chain)
+        want = roofline.vpu_chain_plain(x, chain)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape
+        assert torch.equal(got, want), float((got - want).abs().max())
+    assert roofline.vpu_chain.launches == before + len(cases)
