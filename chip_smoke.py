@@ -1,8 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (``megastep_tpu_torch``) on one NVIDIA GPU.
 
-Builds the port's CUDA kernels from ``megastep_tpu_torch/csrc``, holds each of
-them (each mode of the observe kernel) against its plain torch version on the
-card, and drives the port's three paths at full size:
+Builds the port's CUDA kernels from ``megastep_tpu_torch/csrc``, prints what
+their SASS shows (for each instantiation of the observe kernel, its divides and
+the straight path of its loop over the line slots), holds each of them (each
+mode of the observe kernel, also on crafted edge cases and on scenes of more
+than 64 live line slots) against its plain torch version on the card, and
+drives the port's three paths at full size:
 
 - the roofline (``megastep_tpu_torch.perf.roofline``): the f32 multiply probe
   (K2) on the JAX probe's (64, 8, 256, 512) input, the device-memory and bf16
@@ -27,6 +30,7 @@ name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
 result.
 """
 import argparse
+import functools
 import json
 import math
 import re
@@ -45,6 +49,7 @@ DEVICE = 'cuda'
 N_CHECK = 2048             # Explorer envs of the kernel-vs-plain check
 DM_CHECK = 2048            # Deathmatch agent-envs (512 scenes) of the same check
 N_GEOMETRIES = 512         # floorplans, tiled over the scenes as bench.py does
+N_WIDE = 64                # scenes of more than 64 live line slots
 BOUNDARY = 1e-6            # a second candidate this close to the tolerance edge
 MAX_BOUNDARY_SHARE = 1e-4  # rays allowed to differ, all of them on that edge
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -67,13 +72,97 @@ def log(*args):
     print(*args, flush=True)
 
 
-def sass_opcodes(kernels, name):
-    """The opcodes, with their modifiers, of kernel ``name``'s built library in
-    the order ``cuobjdump -sass`` lists them."""
+def sass_text(kernels, name):
+    """``cuobjdump -sass`` of kernel ``name``'s built library."""
     tool = Path(kernels.nvcc()).resolve().with_name('cuobjdump')
-    text = subprocess.run([str(tool), '-sass', str(kernels.library_path(name))],
+    return subprocess.run([str(tool), '-sass', str(kernels.library_path(name))],
                           capture_output=True, text=True, timeout=120, check=True).stdout
-    return re.findall(r'/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)', text)
+
+
+SASS_LINE = re.compile(r'/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9.]*)([^;]*);')
+
+
+def sass_functions(text):
+    """Each function's instructions, ``[(address, predicated, opcode,
+    operands)]`` in address order, by mangled name."""
+    out = {}
+    for part in text.split('Function : ')[1:]:
+        name = part.split(None, 1)[0]
+        out[name] = [(int(a, 16), bool(p), op, rest)
+                     for a, p, op, rest in SASS_LINE.findall(part)]
+    return out
+
+
+def sass_opcodes(text):
+    """The opcodes, with their modifiers, of every function in ``text``."""
+    return [op for _, _, op, _ in SASS_LINE.findall(text)]
+
+
+def slot_loop(code):
+    """The observe kernel's loop over the line slots: the innermost loop (a
+    backward BRA) around the function's first ``LDS.128``. Returns its first
+    and last address, its instructions, and the opcodes of the shortest path
+    from its head to its backward branch: the path of a slot whose tests are
+    all rejected without a divide."""
+    first = next(a for a, _, op, _ in code if op == 'LDS.128')
+    loops = [(int(re.search(r'0x([0-9a-f]+)', rest).group(1), 16), a)
+             for a, _, op, rest in code if op == 'BRA' and '0x' in rest]
+    head, tail = min(((t, a) for t, a in loops if t <= first < a),
+                     key=lambda ta: ta[1] - ta[0])
+    body = [c for c in code if head <= c[0] <= tail]
+    at = {c[0]: i for i, c in enumerate(body)}
+    # Breadth-first over the body's control flow, one step per instruction.
+    prev, frontier = {0: None}, [0]
+    while frontier and len(body) - 1 not in prev:
+        nxt = []
+        for i in frontier:
+            _, pred, op, rest = body[i]
+            succ = []
+            if op == 'BRA':
+                target = int(re.search(r'0x([0-9a-f]+)', rest).group(1), 16)
+                succ += [at[target]] if target in at and i != len(body) - 1 else []
+                succ += [i + 1] if pred else []
+            elif op != 'EXIT':
+                succ.append(i + 1)
+            for j in succ:
+                if j < len(body) and j not in prev:
+                    prev[j] = i
+                    nxt.append(j)
+        frontier = nxt
+    path, i = [], len(body) - 1
+    while i is not None:
+        path.append(body[i][2])
+        i = prev[i]
+    return head, tail, [c[2] for c in body], path[::-1]
+
+
+def observe_sass(text):
+    """For each instantiation of the observe kernel (``fast_div`` off and
+    on): its ``MUFU.RCP`` count and its slot loop's. Raises if the loop's shortest path, the one every
+    test rejected without a divide takes, holds a ``MUFU.RCP``."""
+    rows = []
+    for name, code in sass_functions(text).items():
+        m = re.search(r'observe_kernelILb([01])E', name)
+        if not m:
+            continue
+        ops = [c[2] for c in code]
+        head, tail, body, path = slot_loop(code)
+        row = dict(fast_div=bool(int(m.group(1))), instructions=len(ops), mufu_rcp=ops.count('MUFU.RCP'),
+                   loop=f'{head:#x}-{tail:#x}', loop_instructions=len(body),
+                   loop_mufu_rcp=body.count('MUFU.RCP'), straight=len(path),
+                   straight_mufu_rcp=path.count('MUFU.RCP'))
+        log(f'observe<fast_div={row["fast_div"]}> SASS: '
+            f'{row["mufu_rcp"]} MUFU.RCP in {row["instructions"]} instructions; '
+            f'slot loop {row["loop"]}: {row["loop_instructions"]} instructions, '
+            f'{row["loop_mufu_rcp"]} MUFU.RCP; its straight path (every test '
+            f'rejected without a divide): {row["straight"]} instructions, '
+            f'{row["straight_mufu_rcp"]} MUFU.RCP: {" ".join(path)}')
+        if row['straight_mufu_rcp']:
+            raise AssertionError('a divide sits on the slot loop\'s straight path')
+        rows.append(row)
+    if len(rows) != 2:
+        raise AssertionError(f'{len(rows)} observe kernel instantiations, not 2')
+    return rows
 
 
 def count(ops, names):
@@ -195,6 +284,19 @@ def check_modes(torch, fused, render, modes, drawn, where):
     return outs, nums
 
 
+def stepper(torch, env, state, g):
+    """A step of ``env`` from ``state`` with random actions from generator
+    ``g``; each call returns the new state and keeps it for the next."""
+    from megastep_tpu_torch.arrdict import arrdict
+
+    def step():
+        nonlocal state
+        actions = torch.randint(0, 7, (env.n_envs, 1), generator=g, device=DEVICE)
+        state, _ = env.step(state, arrdict(actions=actions), g)
+        return state
+    return step
+
+
 def profile_steps(torch, name, step, step_ms, n=4):
     """Device time by kernel over ``n`` calls of ``step``, from torch.profiler,
     and the share of an unprofiled step's wall time ``step_ms`` that the device
@@ -239,11 +341,13 @@ def kernel_entry(mode, launches, err, ms, plain_ms, bound_ms, bound_by):
 def explorer_phase(torch, opts, geoms, peaks):
     """Explorer: kernel against plain at N_CHECK and N_ENVS envs, the main path
     at N_ENVS envs, then its roofline table at ``peaks``. Returns its main_path
-    line, its kernel entry and its table."""
+    line, its kernel entry, its table, and with ``--profile`` a callable that
+    profiles its step."""
     from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
     from megastep_tpu_torch.perf import roofline
+    from megastep_tpu_torch.perf.step_rate import timed_windows
 
     env = envs.Explorer(N_CHECK, geometries=tiled(geoms, N_CHECK), res=RES,
                         subsample=SUBSAMPLE, random=np.random.RandomState(1),
@@ -303,18 +407,11 @@ def explorer_phase(torch, opts, geoms, peaks):
         f'{launches}, mean reward {float(world.reward.mean()):.4f}, '
         f'mean potential {float(state.potential.mean()):.1f}')
 
-    def step():
-        nonlocal state, world
-        actions = torch.randint(0, 7, (N_ENVS, 1), generator=g, device=DEVICE)
-        state, world = env.step(state, arrdict(actions=actions), g)
-
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step()
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / STEPS
+    step = stepper(torch, env, state, g)
+    windows, step_s, state = timed_windows(torch, step)
     log(f'explorer throughput: {N_ENVS / step_s:.0f} env-steps/s '
-        f'({1e3 * step_s:.3f} ms/step)')
+        f'({1e3 * step_s:.3f} ms/step over {len(windows)} windows of {STEPS} '
+        f'steps: {", ".join(f"{1e3 * w:.3f}" for w in windows)})')
 
     # The kernel and its plain version at the main path's shapes.
     args, kw = env.observe_args(state.agents)
@@ -324,25 +421,28 @@ def explorer_phase(torch, opts, geoms, peaks):
     bound_ms, bound_by, work = roofline.bound(scn, out, skip)
     log(f'observe (explorer): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
         f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
-    if opts.profile:
-        profile_steps(torch, 'explorer', step, 1e3 * step_s)
+    profile = (functools.partial(profile_steps, torch, 'explorer', step, 1e3 * step_s)
+               if opts.profile else None)
     table = roofline.analytic('explorer', env, 1e3 * step_s, peaks)
     main = {'env': 'Explorer', 'n_envs': N_ENVS, 'res': RES, 'subsample': SUBSAMPLE,
             'steps': STEPS, 'env_steps_per_s': N_ENVS / step_s,
-            'ms_per_step': 1e3 * step_s, 'build_s': build_s, 'bake_s': bake_s}
+            'ms_per_step': 1e3 * step_s, 'ms_per_step_windows': [1e3 * w for w in windows],
+            'build_s': build_s, 'bake_s': bake_s}
     return main, kernel_entry('explorer', launches, full['max_abs_err'], ms,
-                              plain_ms, bound_ms, bound_by), table
+                              plain_ms, bound_ms, bound_by), table, profile
 
 
 def deathmatch_phase(torch, opts, geoms, peaks):
     """Deathmatch: every mode against plain at DM_CHECK and DM_ENVS agent-envs,
     the main path at DM_ENVS, its roofline table at ``peaks``, and short runs
     with draw_fused and fast_div. Returns its main_path line, its three kernel
-    entries and its table."""
+    entries, its table, and with ``--profile`` a callable that profiles its
+    step."""
     from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
     from megastep_tpu_torch.perf import roofline
+    from megastep_tpu_torch.perf.step_rate import timed_windows
 
     def build(n, seed, **kwargs):
         return envs.Deathmatch(n, n_agents=DM_AGENTS,
@@ -428,18 +528,11 @@ def deathmatch_phase(torch, opts, geoms, peaks):
     g = torch.Generator(device=DEVICE)
     g.manual_seed(2)
 
-    def step():
-        nonlocal state
-        actions = torch.randint(0, 7, (DM_ENVS, 1), generator=g, device=DEVICE)
-        state, _ = env.step(state, arrdict(actions=actions), g)
-
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step()
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / STEPS
+    step = stepper(torch, env, state, g)
+    windows, step_s, state = timed_windows(torch, step)
     log(f'deathmatch throughput: {DM_ENVS / step_s:.0f} agent-steps/s '
-        f'({1e3 * step_s:.3f} ms/step)')
+        f'({1e3 * step_s:.3f} ms/step over {len(windows)} windows of {STEPS} '
+        f'steps: {", ".join(f"{1e3 * w:.3f}" for w in windows)})')
 
     # Every mode and its plain version at the main path's shapes.
     modes, drawn = deathmatch_modes(env, state.agents)
@@ -462,10 +555,10 @@ def deathmatch_phase(torch, opts, geoms, peaks):
             f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
     del modes, drawn, outs
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    if opts.profile:
-        profile_steps(torch, 'deathmatch', step, 1e3 * step_s)
+    profile = (functools.partial(profile_steps, torch, 'deathmatch', step,
+                                 1e3 * step_s) if opts.profile else None)
     table = roofline.analytic('deathmatch', env, 1e3 * step_s, peaks)
-    del env, state
+    del env, state, step
 
     # The same env with the in-kernel draw, then with fast_div, from the main
     # path's seed: the in-kernel draw must repeat its worlds bit for bit.
@@ -490,11 +583,54 @@ def deathmatch_phase(torch, opts, geoms, peaks):
     main = {'env': 'Deathmatch', 'agent_envs': DM_ENVS, 'scenes': n_scenes,
             'agents': DM_AGENTS, 'res': DM_RES, 'subsample': SUBSAMPLE,
             'steps': STEPS, 'agent_steps_per_s': DM_ENVS / step_s,
-            'ms_per_step': 1e3 * step_s, 'build_s': build_s, 'bake_s': bake_s,
+            'ms_per_step': 1e3 * step_s, 'ms_per_step_windows': [1e3 * w for w in windows],
+            'build_s': build_s, 'bake_s': bake_s,
             'rebake_ms': rebake_ms, 'shots': main_nums['shots'],
             'respawns': main_nums['respawns']}
     return main, [kernel_entry(m, launches[m], checks[m]['max_abs_err'], *timed[m])
-                  for m in DM_MODES], table
+                  for m in DM_MODES], table, profile
+
+
+def edges_phase(torch):
+    """The crafted edge cases and the wide scenes (more than 64 live line
+    slots, past the kernel's candidate mask), every mode against the plain
+    version: no ray may differ, and each crafted case's middle ray must pick
+    its named slot."""
+    from megastep_tpu_torch import constants, scene
+    from megastep_tpu_torch.ops import fused, render
+    from megastep_tpu_torch.perf import observe_edges as edges
+
+    hsw = math.tan(math.pi / 180 * 130 / 2)
+    radius = constants.AGENT_RADIUS
+    for mode in edges.MODES:
+        A = 1 if mode == 'explorer' else DM_AGENTS
+        res = RES if mode == 'explorer' else DM_RES
+        crafted = edges.crafted_scenery(A, DEVICE)
+        lines, angles, positions, winners = edges.crafted(crafted, radius)
+        wide = scene.scenery(edges.wide_geometries(N_WIDE), A,
+                             random=np.random.RandomState(0), device=DEVICE)
+        if not (wide.lines_width - wide.n_dynamic > 64).all():
+            raise AssertionError('a wide scene has 64 live line slots or fewer')
+        wide_poses = edges.random_poses(N_WIDE, A, 0, device=DEVICE)
+        cases = (('crafted', crafted, lines, angles, positions, edges.RES),
+                 ('wide', wide, wide.lines, *wide_poses, res))
+        for name, scn, lines_, angles_, positions_, res_ in cases:
+            args, kwargs, drawn = edges.mode_args(scn, lines_, angles_, positions_,
+                                                  res_, hsw, radius, mode)
+            skip = kwargs.get('skip_dyn', 0)
+            out, nums = check_observe(torch, fused, render, args, kwargs, drawn)
+            if nums['differing']:
+                raise AssertionError(f'{mode} {name}: {nums}')
+            if name == 'crafted' and not torch.equal(
+                    out.indices[:, 0, edges.RES // 2], winners):
+                raise AssertionError(f'{mode}: a crafted case picks another '
+                                     'slot than it names')
+            if name == 'wide' and not (out.indices - skip >= 64).any():
+                raise AssertionError(f'{mode}: no wide-scene winner past '
+                                     'the candidate mask')
+            log(f'check {mode} on {name} scenes ({scn.n_envs} envs, '
+                f'{int(scn.lines_width.max())} live slots at most, res {res_}): '
+                f'{nums}')
 
 
 def roofline_phase(torch, kernels, card):
@@ -504,15 +640,17 @@ def roofline_phase(torch, kernels, card):
     K2's kernel entry."""
     from megastep_tpu_torch.perf import roofline
 
-    ops = count(sass_opcodes(kernels, 'vpu_probe'), ('FMUL', 'FFMA', 'FADD'))
+    ops = count(sass_opcodes(sass_text(kernels, 'vpu_probe')), ('FMUL', 'FFMA', 'FADD'))
     log(f'vpu_probe SASS: {ops}')
     if ops['FFMA'] or ops['FMUL'] < 16 * 8:
         raise AssertionError('the probe\'s multiply chains were fused or folded')
-    ops = sass_opcodes(kernels, 'observe')
+    text = sass_text(kernels, 'observe')
+    ops = sass_opcodes(text)
     path = divide_fast_path(ops)
     log(f"observe SASS: {count(ops, ('MUFU.RCP', 'FCHK', 'FFMA', 'FMUL', 'FADD'))}; "
         f"an IEEE divide's fast path, {len(path)} instructions: {' '.join(path)} "
         f'(roofline.DIV_COST {roofline.DIV_COST})')
+    observe_sass(text)
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(3)
@@ -604,12 +742,22 @@ def main():
     # table; bench.py's geometry list of 512 procedural floorplans, tiled.
     geoms = floorplans.sample(N_GEOMETRIES)
     torch.cuda.reset_peak_memory_stats()
-    explorer, explorer_kernel, roofline_line['explorer'] = explorer_phase(
-        torch, opts, geoms, peaks)
+    explorer, explorer_kernel, roofline_line['explorer'], explorer_profile = (
+        explorer_phase(torch, opts, geoms, peaks))
     log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     torch.cuda.reset_peak_memory_stats()
-    deathmatch, deathmatch_kernels, roofline_line['deathmatch'] = deathmatch_phase(
-        torch, opts, geoms, peaks)
+    deathmatch, deathmatch_kernels, roofline_line['deathmatch'], deathmatch_profile = (
+        deathmatch_phase(torch, opts, geoms, peaks))
+
+    # 5. The observe kernel on crafted edge cases and on wide scenes, after
+    # both throughput readings.
+    edges_phase(torch)
+
+    # After every throughput reading, so that the profiler's tracing cannot
+    # touch a timed step.
+    if opts.profile:
+        explorer_profile()
+        deathmatch_profile()
 
     for line in (explorer, deathmatch):
         log(json.dumps({'main_path': line}))

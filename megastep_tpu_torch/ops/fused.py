@@ -81,6 +81,11 @@ def observe_plain(lines, lines_width, tex_starts, tex_widths, table, angles,
     return out
 
 
+#: Shared memory per staged line slot: the float4 (pqx, pqy, vx, vy), the
+#: texel start and width, and s_num.
+SLOT_BYTES = 16 + 8 + 4
+
+
 def _lib():
     lib = kernels.load('observe')
     fn = lib.observe
@@ -169,9 +174,12 @@ def observe(lines, lines_width, tex_starts, tex_widths, table, angles, positions
     if not 0 <= A * draw_model <= L:
         raise ValueError(f'draw_model={draw_model} lines for {A} agents '
                          f'exceed {L} line slots')
-    if (L - skip_dyn) * 24 > 48 * 1024:
+    if (L - skip_dyn) * SLOT_BYTES > 48 * 1024:
         raise ValueError(f'{L - skip_dyn} line slots exceed the kernel\'s '
                          '48 KB of shared memory')
+    if not agent_radius >= 0:
+        raise ValueError(f'agent_radius={agent_radius}: the kernel\'s divide-free '
+                         'rejections need a radius >= 0')
 
     with torch.cuda.device(dev):
         indices = torch.empty((N, A, res), dtype=i32, device=dev)

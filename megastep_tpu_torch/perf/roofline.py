@@ -3,10 +3,13 @@
 Counterpart of the JAX package's ``perf/roofline.py``, for the port's kernels on
 an NVIDIA H100:
 
-(a) COUNTS one observe launch's work from its inputs (:func:`observe_counts`),
-    as ``csrc/observe.cu`` does it: one ray-line test per (agent, ray, live
-    line slot), each a fixed number of f32 operations with the divides counted
-    apart, and the bytes each input and output must move once;
+(a) COUNTS one observe launch's work from its inputs (:func:`observe_counts`)
+    as the plain version does it: one ray-line test per (agent, ray, live line
+    slot), each a fixed number of f32 operations with its two divides counted
+    apart, and the bytes each input and output must move once. The kernel
+    (``csrc/observe.cu``) divides only in the few tests a cheap compare cannot
+    decide, so it does less than these counts; they stay the plain version's
+    so that the rows of every PR compare;
 (b) divides by the card's PUBLISHED peaks into per-unit times
     (:func:`analytic`): the f32 pipes with each divide weighted by
     ``div_cost`` instructions, and device memory. The port's kernels use no
@@ -20,9 +23,10 @@ an NVIDIA H100:
     as two operations; the kernels are built with ``-fmad=false`` and issue
     none, so a plain f32 stream reaches at most half of it.
 
-:func:`bound` is the smoke run's per-launch bound: every divide counted as one
-operation, at the published peaks, the larger of the bytes' and the
-operations' times.
+:func:`bound` is the smoke run's per-launch bound, the yardstick of the kernel
+table: every divide counted as one operation, at the published peaks, the
+larger of the bytes' and the operations' times. :func:`vpu_bound` is K2's: its
+multiplies at one f32 instruction per lane per clock.
 
 Usage::
 
@@ -43,17 +47,22 @@ from ..ops import fused
 #: Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12       # outside the tensor cores; an FMA counts 2
+#: f32 instructions per second: one per lane per clock, half the FMA-counting
+#: rate, which is all a chain of plain multiplies can issue.
+F32_INSTRUCTIONS_PER_S = F32_OPS_PER_S / 2
 BF16_TC_FLOPS = 989e12      # dense tensor cores
-#: f32 operations per ray-line test in the observe kernel's line loop: 2
-#: subtractions for the offset, 3 cross products of 2 multiplies and a
-#: subtraction, the absolute value, 2 divides and 4 compares; fast_div has 1
-#: divide and 2 multiplies in place of the 2 divides.
+#: f32 operations per ray-line test of the plain version: 2 subtractions for
+#: the offset, 3 cross products of 2 multiplies and a subtraction, the absolute
+#: value, 2 divides and 4 compares; fast_div has 1 divide and 2 multiplies in
+#: place of the 2 divides.
 OPS_PER_TEST = 18
 OPS_PER_TEST_FAST_DIV = 19
 #: Instructions an f32 IEEE divide issues, against one for a multiply: its
 #: fast path in the SASS of csrc/observe.cu built for sm_90a is BSSY,
 #: MUFU.RCP, FCHK, five FFMA, a branch past the slow path and BSYNC
 #: (``chip_smoke.py`` prints it). The JAX package's default was 8.
+#: :func:`analytic` weighs every divide of :func:`observe_counts` by it: a
+#: floor of the two-divide design, which the kernel may go below.
 DIV_COST = 10
 #: K2's two multipliers, the JAX probe's np.float32 constants.
 UP, DOWN = np.float32(1.0000001), np.float32(0.9999999)
@@ -210,23 +219,28 @@ def measure_mxu(dim=4096, steps=32):
 # Counts of the observe kernel's work, and bounds.
 # ---------------------------------------------------------------------------
 
-def roofline_ms(nbytes, ops):
+def roofline_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """The larger of ``nbytes`` over the published memory rate and ``ops`` f32
-    operations over the published f32 rate, in ms, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    operations over ``ops_per_s`` (the published f32 rate unless given), in
+    ms, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
 def vpu_bound(numel, chain):
     """K2's bound: ``chain`` multiplies and one add per element, each element
-    read once and written once. :return: ``(ms, 'bytes' or 'operations')``."""
-    return roofline_ms(8 * numel, (chain + 1) * numel)
+    read once and written once. A chain of multiplies has no add to fuse, so
+    each is one instruction at :data:`F32_INSTRUCTIONS_PER_S`; at the probe's
+    (64, 8, 256, 512) input and chain 256 that is about 0.515 ms.
+    :return: ``(ms, 'bytes' or 'operations')``."""
+    return roofline_ms(8 * numel, (chain + 1) * numel, F32_INSTRUCTIONS_PER_S)
 
 
 def observe_counts(scenery, out, skip=0, t_dyn=0, fast_div=False):
-    """Work of one observe launch on these inputs, as ``csrc/observe.cu`` does
-    it: the kernel stops at each env's ``lines_width``, so only live line slots
-    are tested.
+    """Work of one observe on these inputs, as the plain version does it per
+    test: only live line slots (below each env's ``lines_width``) are tested,
+    and every test counts two divides (one with ``fast_div``). The kernel
+    divides in far fewer tests; see the module's note (a).
 
     :param scenery: the launch's scenery (its ``lines_width``).
     :param out: the launch's output (``indices``, and ``seen`` if asked for).
@@ -293,7 +307,11 @@ def _unit_times(counts, rates, div_cost):
 
 
 def analytic(kind, env, step_ms, peaks):
-    """Prints the per-launch analytic table of the observe kernel for one env.
+    """Prints the per-launch analytic table of the observe for one env: the
+    plain version's work per test (:func:`observe_counts`, two divides in every
+    test) over each set of rates. Its f32 floor at the measured rates
+    describes that two-divide design; the kernel, which divides only where a
+    cheap compare cannot decide, may run below it.
 
     Runs one observe at the env's reset state (seed 0), in the env's own mode,
     for the hit count the byte count needs.

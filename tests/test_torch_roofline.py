@@ -177,6 +177,17 @@ def test_bound_equals_brute_force_count(mode):
     assert by == ('bytes' if nbytes / 3.35e12 >= ops / 67e12 else 'operations')
 
 
+def test_vpu_bound_counts_one_instruction_per_multiply():
+    """K2's 17.25 G multiplies and adds at the probe's shape, one f32
+    instruction per lane per clock: half the published FMA-counting 67
+    TFLOP/s, about 0.515 ms, above the 537 MB of bytes (0.160 ms)."""
+    numel = 64 * 8 * 256 * 512
+    ms, by = roofline.vpu_bound(numel, 256)
+    assert by == 'operations'
+    assert ms == pytest.approx(1e3 * 257 * numel / 33.5e12, rel=1e-12)
+    assert ms == pytest.approx(0.515, abs=5e-4)
+
+
 def test_analytic_unit_times():
     """The table's per-unit times: f32 ops with each divide weighted by
     div_cost, bytes, no tensor cores; floor is the max, the sum the
