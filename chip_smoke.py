@@ -16,7 +16,14 @@ drives the port's three paths at full size:
 - Deathmatch: 16,384 agent-envs (4,096 scenes of 4 agents), res 512 pooled by 4
   into RGB + depth + IMU + health, momentum movement, the per-frame re-bake of
   the agent models, the shoot test and respawn at death; then shorter runs of
-  the same env with the in-kernel draw (``draw_fused``) and with ``fast_div``.
+  the same env with the in-kernel draw (``draw_fused``) and with ``fast_div``;
+- training (``megastep_tpu_torch.demo.train``, built through
+  ``megastep_tpu_torch.perf.train_flagship``): the reference's flagship config,
+  Explorer at 8,192 envs with a 256-wide LSTM agent, 32-step rollouts,
+  16,384-sample minibatches, clipped AMSGrad and the KL stop, for 1 + 3
+  chunks; its forward, gradients and an optimizer step on the card against
+  the CPU; a chunk with the transformer core; Deathmatch training at 4,096
+  agent-envs; and MatchCoin learning.
 
 Any failed phase raises, and the script then exits non-zero without its last
 line. Run it from the repository root:
@@ -24,7 +31,7 @@ line. Run it from the repository root:
     python3 chip_smoke.py            # add --profile for a per-kernel breakdown
 
 It prints progress lines, one ``{"main_path": {...}}`` JSON line per env, a
-``{"roofline": {...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
+``{"train": {...}}`` line, a ``{"roofline": {...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits with code 2 and prints no
 result.
@@ -56,6 +63,14 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 VPU_SHAPE, VPU_CHAIN = (64, 8, 256, 512), 256  # the JAX probe's defaults
 VPU_RAGGED = 4 * 100_003 + 1  # elements: not whole float4s
 KERNELS = ('observe', 'vpu_probe')
+# The train phase: the flagship config (megastep_tpu/demo/train.py:265-267).
+TRAIN_ENVS, TRAIN_BUFFER, TRAIN_BATCH, TRAIN_WIDTH = 8192, 32, 16384, 256
+TRAIN_CHUNKS = 3           # timed, after one warm-up chunk
+CHECK_ENVS = 512           # env columns of the card-against-CPU minibatch
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-5)
+TF_ENVS, TF_BATCH = 2048, 4096           # the transformer core's chunk
+DM_TRAIN_ENVS, DM_TRAIN_BATCH, DM_TRAIN_CHUNKS = 4096, 8192, 2
+COIN_ENVS, COIN_WIDTH, COIN_LR, COIN_BUFFER, COIN_CHUNKS = 32, 16, 3e-3, 8, 30
 
 #: The Deathmatch modes of the kernel, as observe() arguments past the inputs.
 #: 'patch' and 'fast_div' read this frame's drawn lines, 'draw_model' the static
@@ -633,6 +648,196 @@ def edges_phase(torch):
                 f'{nums}')
 
 
+def profile_train(torch, run, rollout_ms, learner_ms):
+    """Device time by kernel over one rollout and one learner call of the
+    flagship config's ``run``, against the timed chunks' mean CUDA-event spans
+    of each (``rollout_ms``, ``learner_ms``)."""
+    import importlib
+    train = importlib.import_module('megastep_tpu_torch.demo.train')
+    carry, out = run.carry, {}
+
+    def roll():
+        out['chunk'] = train.rollout(run.env, run.agent, carry.env_state, carry.world,
+                                     carry.agent_state, run.generator, TRAIN_BUFFER)[3]
+    profile_steps(torch, 'train rollout (a chunk)', roll, rollout_ms, n=1)
+    width = TRAIN_BATCH // TRAIN_BUFFER
+    perm = torch.randperm(TRAIN_ENVS, generator=run.generator, device=DEVICE)
+    batches = perm[:TRAIN_ENVS // width * width].reshape(-1, width)
+    profile_steps(torch, 'train learner (a chunk)',
+                  lambda: train.learn(run.agent, run.opt, out['chunk'], carry.agent_state,
+                                      batches),
+                  learner_ms, n=1)
+
+
+def train_phase(torch, opts, geoms, card):
+    """The training path: the flagship config's main path (init_carry's reset,
+    one warm-up chunk, TRAIN_CHUNKS timed ones), its forward and an optimizer
+    step on the card against the CPU, a transformer chunk, Deathmatch training
+    and MatchCoin learning. Returns the ``train`` line, and with ``--profile``
+    a callable that profiles the flagship config's rollout and learner."""
+    import copy
+    import importlib
+    from megastep_tpu_torch.ops import fused
+    from megastep_tpu_torch.perf import train_flagship
+    from megastep_tpu_torch.rebar import fsm
+    from megastep_tpu_torch.models import Agent
+    train = importlib.import_module('megastep_tpu_torch.demo.train')
+
+    def finite(history, what):
+        for m in history:
+            if not train.is_finite(m) or m['minibatches'] < 1:
+                raise AssertionError(f'{what}: a chunk ran no minibatch or has a '
+                                     f'metric that is not finite: {m}')
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fused.observe.launches = 0
+    run = train_flagship.build('explorer', TRAIN_ENVS, TRAIN_BUFFER, TRAIN_BATCH, TRAIN_WIDTH,
+                               geometries=geoms, device=DEVICE, res=RES, subsample=SUBSAMPLE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = [fused.observe.launches]
+    chunks = []
+    for _ in range(1 + TRAIN_CHUNKS):
+        chunks.append(train_flagship.timed_chunks(run, 1))
+        counts.append(fused.observe.launches)
+    launches = fused.observe.launches
+    want = [1 + TRAIN_BUFFER * i for i in range(2 + TRAIN_CHUNKS)]
+    if counts != want:
+        raise AssertionError(f'observe kernel launches after the reset and each chunk '
+                             f'{counts}, not {want}')
+    history = [c[0][0] for c in chunks]
+    finite(history, 'explorer training')
+    timed = chunks[1:]
+    seconds = sum(c[1] for c in timed)
+    rollout_ms = [c[2][0] for c in timed]
+    learner_ms = [c[3][0] for c in timed]
+    rate = TRAIN_ENVS * TRAIN_BUFFER * TRAIN_CHUNKS / seconds
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f'train explorer: {TRAIN_ENVS} envs built in {build_s:.2f} s; observe kernel '
+        f'launches {launches}; {rate:.0f} env-steps/s over {TRAIN_CHUNKS} chunks '
+        f'({1e3 * seconds / TRAIN_CHUNKS:.1f} ms a chunk; rollout '
+        f'{", ".join(f"{ms:.1f}" for ms in rollout_ms)} ms, learner '
+        f'{", ".join(f"{ms:.1f}" for ms in learner_ms)} ms); minibatches '
+        f'{[int(m["minibatches"]) for m in history]}; last chunk {history[-1]}')
+
+    # The card against the CPU on one (T, CHECK_ENVS) minibatch: the forward,
+    # the loss, the gradients, and the parameters after one optimizer step from
+    # the trained optimizer's state. One step moves a parameter by at most lr,
+    # so the parameters alone would not show an error in the backward: the
+    # gradients are held at rtol 1e-4 and atol 1e-5 times the largest one.
+    agent, opt, carry = run.agent, run.opt, run.carry
+    state0 = carry.agent_state.map(lambda x: x[:CHECK_ENVS])
+    _, _, _, chunk = train.rollout(run.env, agent, carry.env_state, carry.world,
+                                   carry.agent_state, run.generator, TRAIN_BUFFER)
+    batch = chunk.map(lambda x: x[:, :CHECK_ENVS].contiguous())
+    del chunk
+    cpu_agent = copy.deepcopy(agent).cpu()
+    results = {}
+    for where, a in (('card', agent), ('cpu', cpu_agent)):
+        dev = a.device
+        b, s0 = batch.map(lambda x: x.to(dev)), state0.map(lambda x: x.to(dev))
+        o = train.optimizer(a.parameters(), opt.lr)
+        o.count = opt.count
+        for k in ('mu', 'nu', 'nu_max'):
+            setattr(o, k, [x.detach().to(dev).clone() for x in getattr(opt, k)])
+        with torch.no_grad():
+            d, _ = a(b.world, s0, value=True)
+        aux = train.optimize(a, o, b, s0)
+        results[where] = dict(logits=d.logits.cpu(), value=d.value.cpu(),
+                              loss=aux['loss'].cpu(),
+                              grads=[p.grad.cpu() for p in a.parameters()],
+                              params=[p.detach().cpu() for p in a.parameters()])
+    card_r, cpu_r = results['card'], results['cpu']
+    errs = {}
+    grad_scale = max(float(g.abs().max()) for g in cpu_r['grads'])
+    for k in ('logits', 'value', 'loss', 'grads', 'params'):
+        listed = k in ('grads', 'params')
+        pairs = list(zip(card_r[k], cpu_r[k])) if listed else [(card_r[k], cpu_r[k])]
+        tol = dict(TRAIN_TOL, atol=TRAIN_TOL['atol'] * grad_scale) if k == 'grads' else TRAIN_TOL
+        errs[k] = max(float((x - y).abs().max()) for x, y in pairs)
+        if not all(torch.allclose(x, y, **tol) for x, y in pairs):
+            raise AssertionError(f'card and CPU differ in {k} by up to {errs[k]} '
+                                 f'(rtol {tol["rtol"]}, atol {tol["atol"]})')
+    errs['grad_scale'] = grad_scale
+    log(f'train card against CPU at T={TRAIN_BUFFER}, B={CHECK_ENVS}: max abs errors {errs}')
+    del agent, opt, carry, cpu_agent, results, card_r, cpu_r, batch, state0
+
+    profile = (functools.partial(profile_train, torch, run, float(np.mean(rollout_ms)),
+                                 float(np.mean(learner_ms))) if opts.profile else None)
+    del run
+
+    # The transformer core at full width.
+    fused.observe.launches = 0
+    run = train_flagship.build('explorer', TF_ENVS, TRAIN_BUFFER, TF_BATCH, TRAIN_WIDTH,
+                               core='transformer', geometries=geoms, device=DEVICE,
+                               res=RES, subsample=SUBSAMPLE)
+    tf_history, tf_s, tf_rollout, tf_learner = train_flagship.timed_chunks(run, 1)
+    finite(tf_history, 'transformer training')
+    if fused.observe.launches != 1 + TRAIN_BUFFER:
+        raise AssertionError(f'transformer run: {fused.observe.launches} observe launches')
+    log(f'train transformer: {TF_ENVS} envs, one chunk in {tf_s:.2f} s (rollout '
+        f'{tf_rollout[0]:.1f} ms, learner {tf_learner[0]:.1f} ms); {tf_history[-1]}')
+    del run
+
+    # Deathmatch training at train_flagship.py's documented config: K1b in the
+    # rollout, under the learner.
+    fused.observe.launches = 0
+    run = train_flagship.build('deathmatch', DM_TRAIN_ENVS, TRAIN_BUFFER, DM_TRAIN_BATCH,
+                               TRAIN_WIDTH, geometries=geoms, device=DEVICE)
+    dm_warm = train_flagship.timed_chunks(run, 1)[0]  # a warm-up chunk, as Explorer's
+    dm_history, dm_s, dm_rollout, dm_learner = train_flagship.timed_chunks(run, DM_TRAIN_CHUNKS)
+    finite(dm_warm + dm_history, 'deathmatch training')
+    dm_launches = fused.observe.launches
+    if dm_launches != 1 + TRAIN_BUFFER * (1 + DM_TRAIN_CHUNKS):
+        raise AssertionError(f'deathmatch training: {dm_launches} observe launches')
+    dm_rate = DM_TRAIN_ENVS * TRAIN_BUFFER * DM_TRAIN_CHUNKS / dm_s
+    log(f'train deathmatch: {DM_TRAIN_ENVS} agent-envs, {dm_rate:.0f} agent-steps/s over '
+        f'{DM_TRAIN_CHUNKS} chunks after a warm-up one (rollout '
+        f'{", ".join(f"{ms:.1f}" for ms in dm_rollout)} '
+        f'ms, learner {", ".join(f"{ms:.1f}" for ms in dm_learner)} ms); observe kernel '
+        f'launches {dm_launches}; last chunk {dm_history[-1]}')
+    del run
+
+    # Learning on the card: MatchCoin, as tests/test_train.py trains it.
+    env = fsm.MatchCoin(COIN_ENVS, device=DEVICE)
+    agent = Agent(env.obs_space, env.action_space, width=COIN_WIDTH,
+                  generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    opt = train.optimizer(agent.parameters(), COIN_LR, max_grad_norm=None)
+    g = torch.Generator(DEVICE)
+    g.manual_seed(0)
+    carry = train.init_carry(env, agent, opt, g)
+    step = train.make_train_step(env, COIN_BUFFER, COIN_BUFFER * COIN_ENVS)
+    rewards = []
+    for _ in range(COIN_CHUNKS):
+        carry, m = step(carry, g)
+        rewards.append(m['traj_reward'])
+    coin = float(np.mean(rewards[-5:]))
+    if not coin > .3:
+        raise AssertionError(f'MatchCoin did not learn on the card: {rewards}')
+    log(f'train MatchCoin: last-5 mean trajectory reward {coin:.3f} after {COIN_CHUNKS} chunks')
+    phase_s = time.perf_counter() - t_phase
+    log(f'train phase: {phase_s:.1f} s')
+
+    return {'env': 'Explorer', 'n_envs': TRAIN_ENVS, 'res': RES, 'subsample': SUBSAMPLE,
+            'width': TRAIN_WIDTH, 'core': 'lstm', 'buffer_size': TRAIN_BUFFER,
+            'batch_size': TRAIN_BATCH, 'chunks': TRAIN_CHUNKS, 'env_steps_per_s': rate,
+            'ms_per_chunk': 1e3 * seconds / TRAIN_CHUNKS, 'rollout_ms': rollout_ms,
+            'learner_ms': learner_ms, 'observe_launches': launches,
+            'minibatches': [int(m['minibatches']) for m in history],
+            'metrics': history[-1], 'peak_memory_gib': peak, 'build_s': build_s,
+            'card_vs_cpu_max_abs_err': errs,
+            'transformer': {'n_envs': TF_ENVS, 'batch_size': TF_BATCH, 'chunk_s': tf_s,
+                            'rollout_ms': tf_rollout[0], 'learner_ms': tf_learner[0],
+                            'metrics': tf_history[-1]},
+            'deathmatch': {'agent_envs': DM_TRAIN_ENVS, 'batch_size': DM_TRAIN_BATCH,
+                           'chunks': DM_TRAIN_CHUNKS, 'agent_steps_per_s': dm_rate,
+                           'rollout_ms': dm_rollout, 'learner_ms': dm_learner,
+                           'observe_launches': dm_launches, 'metrics': dm_history[-1]},
+            'match_coin_last5': coin, 'phase_s': phase_s, 'card': card}, profile
+
+
 def roofline_phase(torch, kernels, card):
     """K2 against its plain version on the JAX probe's input and on ragged
     sizes, bit for bit; its SASS; its times; then the three peak probes.
@@ -753,14 +958,19 @@ def main():
     # both throughput readings.
     edges_phase(torch)
 
+    # 6. Training at the flagship config, and the other train checks.
+    train_line, train_profile = train_phase(torch, opts, geoms, card)
+
     # After every throughput reading, so that the profiler's tracing cannot
     # touch a timed step.
     if opts.profile:
         explorer_profile()
         deathmatch_profile()
+        train_profile()
 
     for line in (explorer, deathmatch):
         log(json.dumps({'main_path': line}))
+    log(json.dumps({'train': train_line}))
     log(json.dumps({'roofline': roofline_line}))
     log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel]}))
     log(nvidia_smi())

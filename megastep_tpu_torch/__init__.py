@@ -4,7 +4,9 @@ A port of :mod:`megastep_tpu` (the JAX package, which stays the reference) to
 torch tensors on an NVIDIA GPU. It keeps the JAX package's module and public
 names, so each function has a counterpart of the same name: the host scene
 compile and light bake, momentum physics, the 1-D raycast renderer, the
-dynamic re-bake and the Explorer and Deathmatch envs. The fused observe, a Pallas kernel in the JAX package, is a
+dynamic re-bake, the Explorer and Deathmatch envs, and the training stack
+(the LSTM and transformer agents, PPO/V-trace with clipped AMSGrad, and the FSM
+testbeds). The fused observe, a Pallas kernel in the JAX package, is a
 hand-written CUDA kernel here (``csrc/observe.cu``), and so is the roofline's
 f32 probe (``csrc/vpu_probe.cu``, in :mod:`.perf.roofline`).
 
@@ -22,10 +24,10 @@ from .dotdict import dotdict
 
 __all__ = ['constants', 'spaces', 'geometry', 'toys', 'dotdict', 'arrdict',
            'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'interop',
-           'kernels', 'perf']
+           'kernels', 'perf', 'models', 'demo', 'rebar']
 
 _LAZY = {'arrdict', 'core', 'scene', 'modules', 'ops', 'envs', 'floorplans',
-         'interop', 'kernels', 'perf'}
+         'interop', 'kernels', 'perf', 'models', 'demo', 'rebar'}
 
 
 def __getattr__(name):

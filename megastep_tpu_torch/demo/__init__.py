@@ -1,0 +1,14 @@
+"""The demo RL stack: PPO/V-trace optimization and the training driver.
+
+Counterpart of :mod:`megastep_tpu.demo` (the reference ``megastep/demo/__init__.py``):
+the RL math (:mod:`.learning`) and the rollout → minibatched PPO learner with the
+clipped AMSGrad optimizer and the KL early stop (:mod:`.train`). ``demo()``,
+``resume``, ``profile`` and the rebar-backed stats and checkpoints come with
+the rebar and parallel slices.
+"""
+from . import learning
+from .train import (as_chunk, init_carry, learn, make_train_step, optimize, optimizer,
+                    ppo_loss, rollout, train)
+
+__all__ = ['learning', 'as_chunk', 'init_carry', 'learn', 'make_train_step', 'optimize',
+           'optimizer', 'ppo_loss', 'rollout', 'train']

@@ -1,0 +1,296 @@
+"""PPO + V-trace training driver.
+
+Counterpart of :mod:`megastep_tpu.demo.train` (the reference
+``megastep/demo/__init__.py:37-173``). One training chunk is
+
+  * **rollout**: ``buffer_size`` env steps, each an agent forward at T=1, a
+    sampled action and an ``env.step``, under ``torch.no_grad()``;
+  * **learn**: PPO-clip/V-trace updates over random minibatches of env columns
+    with the clipped AMSGrad optimizer, and the reference's KL early stop: once
+    a minibatch's ``kl_div`` exceeds ``kl_limit``, the later minibatches do not
+    run. The stop reads ``kl_div`` on the host, one sync per minibatch.
+
+The JAX package jits both into one device program; here they run eagerly, and
+the environment's own kernels (the observe kernel, on the card) run inside the
+rollout. The agent (the parameters) and the optimizer (its moments) are part of
+the carry, where the JAX carry holds ``params`` and ``opt_state``.
+"""
+import logging
+import math
+
+import torch
+
+from ..arrdict import arrdict, stack
+from ..models import Agent
+from ..models.agent import f32_math
+from . import learning
+
+log = logging.getLogger(__name__)
+
+# optax.amsgrad's defaults (eps_root = 0).
+B1, B2, EPS = .9, .999, 1e-8
+
+
+def _expand_t(tree):
+    return tree.map(lambda x: x[None])
+
+
+def _squeeze_t(tree):
+    return tree.map(lambda x: x[0])
+
+
+@torch.no_grad()
+def rollout(env, agent, env_state, world, agent_state, generator, T):
+    """Rolls the env forward ``T`` steps under the current policy.
+
+    :param generator: the ``torch.Generator``, on the env's device, that both the
+        actions and the env's own draws come from.
+    :return: ``(env_state, world, agent_state, chunk)`` — chunk has (T, B, ...)
+        leaves of ``world`` and ``decision`` (the reference's buffer,
+        ``demo/__init__.py:124-134``).
+    """
+    worlds, decisions = [], []
+    for _ in range(T):
+        decision, agent_state = agent(_expand_t(world), agent_state, generator=generator,
+                                      sample=True, value=True)
+        decision = _squeeze_t(decision)
+        worlds.append(world)
+        decisions.append(decision)
+        env_state, world = env.step(env_state, decision, generator)
+    return env_state, world, agent_state, arrdict(world=stack(worlds), decision=stack(decisions))
+
+
+def as_chunk(chunk):
+    """Scalar rollout statistics, as 0-d tensors (reference ``as_chunk``,
+    ``demo/__init__.py:37-52``)."""
+    w = chunk.world
+    n = w.reset.numel()
+    trajs = w.reset.sum().float()
+    return dict(samples=torch.full((), n, dtype=torch.float32, device=trajs.device),
+                trajs=trajs,
+                step_reward=w.reward.sum() / n,
+                traj_reward=w.reward.sum() / trajs.clamp(min=1))
+
+
+def ppo_loss(agent, batch, state0, entropy=1e-2, gamma=.99, clip=.2):
+    """PPO-clip policy loss + clipped V-trace value loss + entropy bonus
+    (reference ``optimize``, ``demo/__init__.py:54-107``). Returns
+    ``(loss, aux)``.
+
+    ``torch.minimum``/``torch.maximum`` split a tie's gradient in half between
+    their arguments, as JAX's do; on the first minibatch ``ratio`` is 1 and the
+    policy loss's two sides tie wherever the clip lets it through.
+    """
+    w, d0 = batch.world, batch.decision
+    d, _ = agent(w, state0, value=True)
+
+    logits = learning.flatten(d.logits)
+    old_logits = learning.flatten(learning.gather(d0.logits, d0.actions)).sum(-1)
+    new_logits = learning.flatten(learning.gather(d.logits, d0.actions)).sum(-1)
+    ratio = torch.exp(new_logits - old_logits).clamp(.05, 20)
+
+    v_target = learning.v_trace(ratio, d.value, w.reward, w.reset, gamma=gamma)
+    v_clipped = d0.value + (d.value - d0.value).clamp(-10, +10)
+    v_loss = .5 * torch.maximum((d.value - v_target)**2, (v_clipped - v_target)**2).mean()
+
+    adv = learning.generalized_advantages(d.value, w.reward, d.value, w.reset, gamma=gamma)
+    adv_std = adv.std(correction=0)
+    normed_adv = (adv - adv.mean()) / (1e-3 + adv_std)
+    free_adv = ratio * normed_adv
+    clip_adv = ratio.clamp(1 - clip, 1 + clip) * normed_adv
+    p_loss = -torch.minimum(free_adv, clip_adv).mean()
+
+    h_loss = (torch.exp(logits) * logits).sum(-1).mean()
+    loss = v_loss + p_loss + entropy * h_loss
+
+    kl_div = -(new_logits - old_logits).mean()
+    aux = dict(v_loss=v_loss, p_loss=p_loss, h_loss=h_loss, kl_div=kl_div,
+               v_target_mean=v_target.mean(), adv_std=adv_std)
+    return loss, aux
+
+
+class ClippedAMSGrad:
+    """``optax.chain(clip_by_global_norm(max_grad_norm), amsgrad(lr))``, the JAX
+    package's optimizer (``train.py:110-114``), over a list of parameters.
+
+    Written out because PyTorch's forms differ: ``Adam(amsgrad=True)`` keeps the
+    maximum of the raw second moment and divides by the step's bias correction,
+    where optax keeps the maximum of the bias-corrected moment; and
+    ``clip_grad_norm_`` adds 1e-6 to the norm, where optax keeps the gradient
+    when its norm is under the limit and scales it by ``limit / norm``
+    otherwise. A parameter with no gradient takes a zero one, as in JAX. The
+    clip and the bias corrections stay on the device: no host sync.
+    """
+
+    def __init__(self, params, lr=3e-4, max_grad_norm=100.):
+        self.params = list(params)
+        self.lr, self.max_grad_norm = lr, max_grad_norm
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.nu_max = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    def _bias_correction(self, decay):
+        """``1 - decay**count`` in f32, as optax computes it, made on the
+        parameters' device (so dividing by it is a true division, with no
+        host-to-device copy)."""
+        decay = torch.full((), decay, dtype=torch.float32, device=self.params[0].device)
+        return 1 - decay**self.count
+
+    @torch.no_grad()
+    def step(self):
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
+        if self.max_grad_norm is not None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            keep = norm < self.max_grad_norm
+            grads = [torch.where(keep, g, g / norm * self.max_grad_norm) for g in grads]
+        self.count += 1
+        c1, c2 = self._bias_correction(B1), self._bias_correction(B2)
+        for p, g, mu, nu, nu_max in zip(self.params, grads, self.mu, self.nu, self.nu_max):
+            mu.copy_((1 - B1) * g + B1 * mu)
+            nu.copy_((1 - B2) * g**2 + B2 * nu)
+            torch.maximum(nu_max, nu / c2, out=nu_max)
+            p.add_(mu / c1 / (torch.sqrt(nu_max) + EPS) * -self.lr)
+
+
+def optimizer(params, lr=3e-4, max_grad_norm=100.):
+    """The demo optimizer: AMSGrad behind a global-norm-100 gradient clip
+    (reference ``demo/__init__.py:78-81``); ``max_grad_norm=None`` is bare
+    AMSGrad, ``optax.amsgrad(lr)``."""
+    return ClippedAMSGrad(params, lr, max_grad_norm)
+
+
+def optimize(agent, opt, batch, state0, **hp):
+    """One gradient step on one minibatch. Returns the loss terms as detached
+    0-d tensors. The forward and the backward both run in full f32
+    (:func:`~megastep_tpu_torch.models.agent.f32_math`)."""
+    with f32_math(agent.device):
+        loss, aux = ppo_loss(agent, batch, state0, **hp)
+        opt.zero_grad()
+        loss.backward()
+    opt.step()
+    aux['loss'] = loss
+    return {k: v.detach() for k, v in aux.items()}
+
+
+def learn(agent, opt, chunk, state0, batches, kl_limit=.02, **hp):
+    """Minibatched PPO over a rollout chunk with the KL early stop
+    (``train.py:202-245``).
+
+    :param state0: the agent state at the chunk's start, batch-first.
+    :param batches: (n_batches, batch_width) env indices, one row a minibatch.
+    :return: the loss terms averaged over the minibatches that ran, and
+        ``skipped``: the share of minibatches after whose update the stop had
+        tripped, (n − k)/n when minibatch k tripped it; and ``minibatches``,
+        the number that ran.
+    """
+    rows, tripped = [], False
+    for idx in batches:
+        batch = chunk.map(lambda x: x[:, idx])
+        s0 = state0.map(lambda x: x[idx])
+        rows.append(optimize(agent, opt, batch, s0, **hp))
+        if bool(rows[-1]['kl_div'] > kl_limit):
+            tripped = True
+            break
+    n = len(batches)
+    metrics = {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
+    metrics['skipped'] = torch.tensor((n - len(rows) + 1) / n if tripped else 0.)
+    metrics['minibatches'] = torch.tensor(float(len(rows)))
+    return metrics
+
+
+def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, **hp):
+    """Builds the one-chunk training step: rollout → minibatched PPO with the KL
+    early stop (reference outer loop, ``demo/__init__.py:124-145``).
+
+    :return: ``step(carry, generator, mark=None) -> (carry, metrics)``, with
+        carry the arrdict of :func:`init_carry` and metrics a dict of floats
+        (one host sync at its end). ``generator`` draws the actions, the env's
+        randomness and the learner's permutation. ``mark``, if given, is called
+        before the rollout, between the rollout and the learner, and after the
+        learner (e.g. to record CUDA events).
+    """
+    n_envs = env.n_envs
+    batch_width = max(batch_size // buffer_size, 1)
+    n_batches = n_envs // batch_width
+    if n_batches < 1:
+        raise ValueError(
+            f'batch_size // buffer_size = {batch_width} env columns per '
+            f'minibatch exceeds n_envs = {n_envs}: the learner would run '
+            f'ZERO minibatches (and silently never train). Lower batch_size '
+            f'or raise n_envs.')
+
+    def step(carry, generator, mark=None):
+        mark = mark or (lambda: None)
+        agent, opt = carry.agent, carry.opt
+        mark()
+        env_state, world, agent_state, chunk = rollout(
+            env, agent, carry.env_state, carry.world, carry.agent_state, generator,
+            buffer_size)
+        mark()
+        perm = torch.randperm(n_envs, generator=generator, device=generator.device)
+        batches = perm[:n_batches * batch_width].reshape(n_batches, batch_width)
+        metrics = learn(agent, opt, chunk, carry.agent_state, batches, kl_limit, **hp)
+        metrics.update(as_chunk(chunk))
+        mark()
+        keys = list(metrics)
+        values = torch.stack([metrics[k].to(agent.device) for k in keys]).tolist()
+        new_carry = arrdict(agent=agent, opt=opt, env_state=env_state, world=world,
+                            agent_state=agent_state)
+        return new_carry, dict(zip(keys, values))
+
+    return step
+
+
+def init_carry(env, agent, opt, generator):
+    """The carry (agent, opt, env_state, world, agent_state): the env reset from
+    ``generator`` and a zeroed recurrent state on the agent's device."""
+    env_state, world = env.reset(generator)
+    return arrdict(agent=agent, opt=opt, env_state=env_state, world=world,
+                   agent_state=agent.initial_state(env.n_envs))
+
+
+def train(env=None, n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024, width=256,
+          lr=3e-4, steps=None, seed=0, device='cuda', **hp):
+    """The training entry point (reference ``train()``,
+    ``demo/__init__.py:109-148``): Explorer + 256-wide LSTM agent + clipped
+    AMSGrad, for ``steps`` chunks, or until interrupted (Ctrl-C ends the run
+    and returns what finished) when ``steps`` is None.
+
+    :param env: an env; ``None`` builds ``Explorer(n_envs, device=device)``. A
+        given env sets the device.
+    :param seed: seeds the agent's initial parameters (drawn on the CPU, so
+        the same on every device) and the run's generator.
+    :param hp: ``kl_limit`` and :func:`ppo_loss`'s ``entropy``/``gamma``/``clip``.
+    :return: ``(carry, metrics)``, metrics a list of one dict per chunk.
+    """
+    if env is None:
+        from ..envs import Explorer
+        env = Explorer(n_envs, device=device)
+    device = env.device
+    agent = Agent(env.obs_space, env.action_space, width=width,
+                  generator=torch.Generator().manual_seed(seed)).to(device)
+    opt = optimizer(agent.parameters(), lr)
+    generator = torch.Generator(device).manual_seed(seed)
+    carry = init_carry(env, agent, opt, generator)
+    step = make_train_step(env, buffer_size, batch_size, **hp)
+
+    history = []
+    try:
+        while steps is None or len(history) < steps:
+            carry, metrics = step(carry, generator)
+            history.append(metrics)
+            log.info('chunk %d: traj_reward %.4f, kl_div %.4f', len(history),
+                     metrics['traj_reward'], metrics['kl_div'])
+    except KeyboardInterrupt:
+        log.info('interrupted after %d chunks', len(history))
+    return carry, history
+
+
+def is_finite(metrics):
+    """Whether every metric of a chunk is a finite number."""
+    return all(math.isfinite(v) for v in metrics.values())

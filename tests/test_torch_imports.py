@@ -23,6 +23,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'megastep_tpu'))
 print(len(names))
 print(','.join(bad))
+print(','.join(names))
 """
 
 
@@ -31,9 +32,13 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = (out.stdout + '\n').split('\n')[:2]
+    n, bad, names = (out.stdout + '\n\n').split('\n')[:3]
     assert int(n) >= 15, out.stdout
     assert bad == '', f'importing the port pulled in {bad}'
+    # The training stack's subpackages are among the modules imported.
+    for name in ('models.agent', 'models.heads', 'models.lstm', 'models.transformer',
+                 'demo.learning', 'demo.train', 'rebar.fsm', 'perf.train_flagship'):
+        assert f'megastep_tpu_torch.{name}' in names.split(','), name
 
 
 def test_chip_smoke_imports_no_jax():
@@ -57,3 +62,13 @@ def test_entry_points_need_a_device_choice_without_a_gpu():
         scene.scenery([toys.box()], random=np.random.RandomState(0))
     assert scene.scenery([toys.box()], random=np.random.RandomState(0),
                          bake_fn=None, device='cpu').device.type == 'cpu'
+    from megastep_tpu_torch.demo import train
+    from megastep_tpu_torch.perf import train_flagship
+    from megastep_tpu_torch.rebar import fsm
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        fsm.MatchCoin(4)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train(n_envs=4, steps=1)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_flagship.build(n_envs=4)
+    assert fsm.MatchCoin(4, device='cpu').device.type == 'cpu'
