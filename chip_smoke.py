@@ -5,7 +5,7 @@ their SASS shows (for each instantiation of the observe kernel, its divides and
 the straight path of its loop over the line slots), holds each of them (each
 mode of the observe kernel, also on crafted edge cases and on scenes of more
 than 64 live line slots) against its plain torch version on the card, and
-drives the port's three paths at full size:
+drives the port's paths at full size:
 
 - the roofline (``megastep_tpu_torch.perf.roofline``): the f32 multiply probe
   (K2) on the JAX probe's (64, 8, 256, 512) input, the device-memory and bf16
@@ -17,6 +17,14 @@ drives the port's three paths at full size:
   into RGB + depth + IMU + health, momentum movement, the per-frame re-bake of
   the agent models, the shoot test and respawn at death; then shorter runs of
   the same env with the in-kernel draw (``draw_fused``) and with ``fast_div``;
+- Minimal: 16,384 envs, res 64, through the un-fused render (torch ops, no
+  kernel) and simple movement; the card against the CPU at 64 envs, and its
+  screen against the observe kernel's on the same agents;
+- real floorplans: the five cubicasa fixtures (``tests/fixtures/cubicasa``),
+  written into a dataset zip in a temporary cache directory and converted by
+  the port's pipeline in a process pool; Explorer at 16,384 envs and
+  Deathmatch at 16,384 agent-envs on them, each with its kernel against the
+  plain version (Deathmatch past the kernel's 64-slot candidate mask);
 - training (``megastep_tpu_torch.demo.train``, built through
   ``megastep_tpu_torch.perf.train_flagship``): the reference's flagship config,
   Explorer at 8,192 envs with a 256-wide LSTM agent, 32-step rollouts,
@@ -30,19 +38,21 @@ line. Run it from the repository root:
 
     python3 chip_smoke.py            # add --profile for a per-kernel breakdown
 
-It prints progress lines, one ``{"main_path": {...}}`` JSON line per env, a
-``{"train": {...}}`` line, a ``{"roofline": {...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
-name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
-"device": {...}}``. Without a CUDA device it exits with code 2 and prints no
-result.
+It prints progress lines, one ``{"main_path": {...}}`` JSON line per env and
+set of plans, a ``{"train": {...}}`` line, a ``{"roofline": {...}}`` line, a
+``{"kernels": [...]}`` JSON line, the card's name and power limit as
+``nvidia-smi`` gives them, and last ``{"ok": true, "device": {...}}``. Without
+a CUDA device it exits with code 2 and prints no result.
 """
 import argparse
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -63,6 +73,11 @@ TOL = dict(rtol=1e-5, atol=1e-6)
 VPU_SHAPE, VPU_CHAIN = (64, 8, 256, 512), 256  # the JAX probe's defaults
 VPU_RAGGED = 4 * 100_003 + 1  # elements: not whole float4s
 KERNELS = ('observe', 'vpu_probe')
+MIN_ENVS, MIN_CHECK, MIN_SEED = 16384, 64, 0   # Minimal: main path, card vs CPU
+REAL = 'cubicasa fixtures'  # the real plans, tests/fixtures/cubicasa/*/model.svg
+FIXTURES = Path(__file__).resolve().parent / 'tests' / 'fixtures' / 'cubicasa'
+PLANS = ('apartment_a', 'duplex_e', 'loft_d', 'rowhouse_c', 'studio_b')
+REAL_DM_STEPS = 8          # Deathmatch on the real plans: steps of its run
 # The train phase: the flagship config (megastep_tpu/demo/train.py:265-267).
 TRAIN_ENVS, TRAIN_BUFFER, TRAIN_BATCH, TRAIN_WIDTH = 8192, 32, 16384, 256
 TRAIN_CHUNKS = 3           # timed, after one warm-up chunk
@@ -233,8 +248,9 @@ def deathmatch_modes(env, agents):
     return modes, drawn
 
 
-def check_observe(torch, fused, render, args, kwargs, drawn=None):
-    """The observe kernel against its plain version on the same inputs.
+def check_observe(torch, fused, render, args, kwargs, drawn=None, want=None):
+    """The observe kernel against its plain version on the same inputs (or
+    against ``want``, another reference in the plain version's layout).
 
     Indices must be equal, except on rays where a second candidate line lies
     within ``BOUNDARY`` of the plain version's tolerance edge ``s_min +
@@ -246,7 +262,7 @@ def check_observe(torch, fused, render, args, kwargs, drawn=None):
     the comparison's numbers.
     """
     got = fused.observe(*args, **kwargs)
-    want = fused.observe_plain(*args, **kwargs)
+    want = fused.observe_plain(*args, **kwargs) if want is None else want
     torch.cuda.synchronize()
     skip = kwargs.get('skip_dyn', 0)
     lines = args[0] if drawn is None else drawn
@@ -344,20 +360,24 @@ def time_observe(torch, fused, args, kwargs):
     return ms, plain_ms
 
 
-def kernel_entry(mode, launches, err, ms, plain_ms, bound_ms, bound_by):
+def kernel_entry(mode, launches, err, ms, plain_ms, bound_ms, bound_by, plans=None):
     # No single PyTorch call computes this function, so library_ms is null.
-    return {'name': f'observe ({mode})', 'route': 'cuda',
-            'source': 'megastep_tpu_torch/csrc/observe.cu',
-            'replaces': REPLACES[mode], 'launches': launches, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None}
+    entry = {'name': f'observe ({mode}{", " + plans if plans else ""})', 'route': 'cuda',
+             'source': 'megastep_tpu_torch/csrc/observe.cu',
+             'replaces': REPLACES[mode], 'launches': launches, 'max_abs_err': err,
+             'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+             'bound_by': bound_by, 'library_ms': None}
+    if plans:
+        entry['plans'] = plans
+    return entry
 
 
-def explorer_phase(torch, opts, geoms, peaks):
+def explorer_phase(torch, opts, geoms, peaks, plans=None):
     """Explorer: kernel against plain at N_CHECK and N_ENVS envs, the main path
     at N_ENVS envs, then its roofline table at ``peaks``. Returns its main_path
     line, its kernel entry, its table, and with ``--profile`` a callable that
-    profiles its step."""
+    profiles its step. ``plans`` names the geometries where they are not the
+    procedural ones, in the logs, the main_path line and the kernel entry."""
     from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
@@ -372,9 +392,10 @@ def explorer_phase(torch, opts, geoms, peaks):
     state, _ = env.reset(g)
     angles = torch.rand(state.agents.angles.shape, generator=g, device=DEVICE) * 360 - 180
     agents = arrdict(angles=angles, positions=state.agents.positions)
+    where = f'explorer on {plans}' if plans else 'explorer'
     skip = env.core.scenery.n_dynamic
     _, small = check_observe(torch, fused, render, *env.observe_args(agents))
-    log(f'check explorer at {N_CHECK} envs: {small}')
+    log(f'check {where} at {N_CHECK} envs: {small}')
     del env, state, agents
 
     t0 = time.perf_counter()
@@ -388,9 +409,9 @@ def explorer_phase(torch, opts, geoms, peaks):
     bake.bake(scn)
     torch.cuda.synchronize()
     bake_s = time.perf_counter() - t0
-    log(f'explorer: {N_ENVS} envs built in {build_s:.2f} s (bake alone {bake_s:.2f} s); '
-        f'lines {tuple(scn.lines.shape)} texels {tuple(scn.baked.shape)} '
-        f'lights {tuple(scn.lights.shape)}')
+    log(f'{where}: {N_ENVS} envs built in {build_s:.2f} s (bake alone {bake_s:.2f} s); '
+        f'lines {tuple(scn.lines.shape)} ({int(scn.lines_width.max())} live at most) '
+        f'texels {tuple(scn.baked.shape)} lights {tuple(scn.lights.shape)}')
 
     g = torch.Generator(device=DEVICE)
     g.manual_seed(0)
@@ -418,23 +439,23 @@ def explorer_phase(torch, opts, geoms, peaks):
                              f'reset + {STEPS} steps')
     if not bool(ok):
         raise AssertionError('observations, rewards or potentials out of range')
-    log(f'explorer main path: reset + {STEPS} steps, observe kernel launches '
+    log(f'{where} main path: reset + {STEPS} steps, observe kernel launches '
         f'{launches}, mean reward {float(world.reward.mean()):.4f}, '
         f'mean potential {float(state.potential.mean()):.1f}')
 
     step = stepper(torch, env, state, g)
     windows, step_s, state = timed_windows(torch, step)
-    log(f'explorer throughput: {N_ENVS / step_s:.0f} env-steps/s '
+    log(f'{where} throughput: {N_ENVS / step_s:.0f} env-steps/s '
         f'({1e3 * step_s:.3f} ms/step over {len(windows)} windows of {STEPS} '
         f'steps: {", ".join(f"{1e3 * w:.3f}" for w in windows)})')
 
     # The kernel and its plain version at the main path's shapes.
     args, kw = env.observe_args(state.agents)
     out, full = check_observe(torch, fused, render, args, kw)
-    log(f'check explorer at {N_ENVS} envs: {full}')
+    log(f'check {where} at {N_ENVS} envs: {full}')
     ms, plain_ms = time_observe(torch, fused, args, kw)
     bound_ms, bound_by, work = roofline.bound(scn, out, skip)
-    log(f'observe (explorer): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
+    log(f'observe ({where}): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
         f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
     profile = (functools.partial(profile_steps, torch, 'explorer', step, 1e3 * step_s)
                if opts.profile else None)
@@ -443,8 +464,64 @@ def explorer_phase(torch, opts, geoms, peaks):
             'steps': STEPS, 'env_steps_per_s': N_ENVS / step_s,
             'ms_per_step': 1e3 * step_s, 'ms_per_step_windows': [1e3 * w for w in windows],
             'build_s': build_s, 'bake_s': bake_s}
+    if plans:
+        main.update(plans=plans, line_slots=scn.lines.shape[1],
+                    live_slots_max=int(scn.lines_width.max()), texels=scn.baked.shape[1])
     return main, kernel_entry('explorer', launches, full['max_abs_err'], ms,
-                              plain_ms, bound_ms, bound_by), table, profile
+                              plain_ms, bound_ms, bound_by, plans), table, profile
+
+
+def deathmatch_env(geoms, n, seed, **kwargs):
+    """Deathmatch at ``n`` agent-envs on ``geoms`` tiled over its scenes."""
+    from megastep_tpu_torch import envs
+    return envs.Deathmatch(n, n_agents=DM_AGENTS, geometries=tiled(geoms, n // DM_AGENTS),
+                           res=DM_RES, subsample=SUBSAMPLE,
+                           random=np.random.RandomState(seed), device=DEVICE, **kwargs)
+
+
+def deathmatch_run(torch, env, steps, seed, keep=0):
+    """Reset + ``steps`` steps of a DM_ENVS Deathmatch from generator seed
+    ``seed``, counting the observe kernel's launches from 0; checks each world
+    and returns the last state, the run's numbers and the first ``keep``
+    worlds."""
+    from megastep_tpu_torch.arrdict import arrdict
+    from megastep_tpu_torch.ops import fused
+    ds = DM_RES // SUBSAMPLE
+    shapes = dict(rgb=(DM_ENVS, 1, 3, 1, ds), d=(DM_ENVS, 1, 1, 1, ds),
+                  imu=(DM_ENVS, 1, 3), health=(DM_ENVS, 1, 1))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    fused.observe.launches = 0
+    state, world = env.reset(g)
+    kept = [world][:keep]
+    ok = torch.ones((), dtype=torch.bool, device=DEVICE)
+    shots = respawns = 0
+    for _ in range(steps):
+        actions = torch.randint(0, 7, (DM_ENVS, 1), generator=g, device=DEVICE)
+        prev = state.health
+        state, world = env.step(state, arrdict(actions=actions), g)
+        for k, shape in shapes.items():
+            if tuple(world.obs[k].shape) != shape:
+                raise AssertionError(f'obs.{k} has shape {tuple(world.obs[k].shape)}')
+            ok &= torch.isfinite(world.obs[k]).all()
+        for k in ('rgb', 'd'):
+            ok &= ((world.obs[k] >= 0) & (world.obs[k] <= 1)).all()
+        # Respawn only where health was <= 0; there health restarts at 1
+        # less at most this step's wounds and penalty, elsewhere it falls.
+        dead = prev <= 0
+        ok &= (world.reset == dead.reshape(-1)).all()
+        ok &= torch.where(dead, state.health > .75, state.health < prev).all()
+        ok &= torch.isfinite(world.reward).all() & (world.reward >= 0).all()
+        shots += state.matchings.sum()
+        respawns += dead.sum()
+        if len(kept) < keep:
+            kept.append(world)
+    torch.cuda.synchronize()
+    if not bool(ok):
+        raise AssertionError('observations, health, rewards or respawns out of range')
+    nums = dict(launches=fused.observe.launches, shots=int(shots),
+                respawns=int(respawns))
+    return state, nums, kept
 
 
 def deathmatch_phase(torch, opts, geoms, peaks):
@@ -453,17 +530,13 @@ def deathmatch_phase(torch, opts, geoms, peaks):
     with draw_fused and fast_div. Returns its main_path line, its three kernel
     entries, its table, and with ``--profile`` a callable that profiles its
     step."""
-    from megastep_tpu_torch import envs
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
     from megastep_tpu_torch.perf import roofline
     from megastep_tpu_torch.perf.step_rate import timed_windows
 
-    def build(n, seed, **kwargs):
-        return envs.Deathmatch(n, n_agents=DM_AGENTS,
-                               geometries=tiled(geoms, n // DM_AGENTS), res=DM_RES,
-                               subsample=SUBSAMPLE, random=np.random.RandomState(seed),
-                               device=DEVICE, **kwargs)
+    build = functools.partial(deathmatch_env, geoms)
+    run = functools.partial(deathmatch_run, torch)
 
     env = build(DM_CHECK, 1)
     g = torch.Generator(device=DEVICE)
@@ -490,47 +563,6 @@ def deathmatch_phase(torch, opts, geoms, peaks):
         f'{tuple(scn.lines.shape)} ({scn.n_dynamic} dynamic) texels '
         f'{tuple(scn.baked.shape)} ({scn.n_dynamic_texels} dynamic) lights '
         f'{tuple(scn.lights.shape)}')
-
-    ds = DM_RES // SUBSAMPLE
-    shapes = dict(rgb=(DM_ENVS, 1, 3, 1, ds), d=(DM_ENVS, 1, 1, 1, ds),
-                  imu=(DM_ENVS, 1, 3), health=(DM_ENVS, 1, 1))
-
-    def run(env, steps, seed, keep=0):
-        """Reset + ``steps`` steps from generator seed ``seed``; checks each
-        world and returns the run's numbers and the first ``keep`` worlds."""
-        g = torch.Generator(device=DEVICE)
-        g.manual_seed(seed)
-        fused.observe.launches = 0
-        state, world = env.reset(g)
-        kept = [world][:keep]
-        ok = torch.ones((), dtype=torch.bool, device=DEVICE)
-        shots = respawns = 0
-        for _ in range(steps):
-            actions = torch.randint(0, 7, (DM_ENVS, 1), generator=g, device=DEVICE)
-            prev = state.health
-            state, world = env.step(state, arrdict(actions=actions), g)
-            for k, shape in shapes.items():
-                if tuple(world.obs[k].shape) != shape:
-                    raise AssertionError(f'obs.{k} has shape {tuple(world.obs[k].shape)}')
-                ok &= torch.isfinite(world.obs[k]).all()
-            for k in ('rgb', 'd'):
-                ok &= ((world.obs[k] >= 0) & (world.obs[k] <= 1)).all()
-            # Respawn only where health was <= 0; there health restarts at 1
-            # less at most this step's wounds and penalty, elsewhere it falls.
-            dead = prev <= 0
-            ok &= (world.reset == dead.reshape(-1)).all()
-            ok &= torch.where(dead, state.health > .75, state.health < prev).all()
-            ok &= torch.isfinite(world.reward).all() & (world.reward >= 0).all()
-            shots += state.matchings.sum()
-            respawns += dead.sum()
-            if len(kept) < keep:
-                kept.append(world)
-        torch.cuda.synchronize()
-        if not bool(ok):
-            raise AssertionError('observations, health, rewards or respawns out of range')
-        nums = dict(launches=fused.observe.launches, shots=int(shots),
-                    respawns=int(respawns))
-        return state, nums, kept
 
     state, main_nums, ref = run(env, STEPS, 0, keep=1 + DM_MODE_STEPS)
     if main_nums['launches'] != 1 + STEPS:
@@ -646,6 +678,201 @@ def edges_phase(torch):
             log(f'check {mode} on {name} scenes ({scn.n_envs} envs, '
                 f'{int(scn.lines_width.max())} live slots at most, res {res_}): '
                 f'{nums}')
+
+
+def minimal_phase(torch, opts):
+    """Minimal: the un-fused render (draw, raycast and shade as torch ops, as
+    the JAX Minimal renders with XLA ops) and simple movement. The card against
+    the CPU at MIN_CHECK envs on the same scenery seed, spawn slots and actions;
+    the main path at MIN_ENVS envs, reset + STEPS steps of random actions, in
+    which the observe kernel must not launch; its throughput; then the
+    un-fused screen of the main path's last agents against the observe
+    kernel's (K1a, on the static lines past the agent model) by
+    ``check_observe``'s edge rule. Returns its main_path line and, with
+    ``--profile``, a callable that profiles its step."""
+    from megastep_tpu_torch import envs, modules
+    from megastep_tpu_torch.arrdict import arrdict
+    from megastep_tpu_torch.ops import fused, render
+    from megastep_tpu_torch.perf.step_rate import timed_windows
+
+    # The scenery's textures and lights come from numpy's global state, as in
+    # the JAX package: each build is seeded the same.
+    cpu_gen = torch.Generator().manual_seed(1)
+    choices = torch.randint(0, 100, (MIN_CHECK, 1), generator=cpu_gen)
+    actions = torch.randint(0, 7, (STEPS, MIN_CHECK, 1), generator=cpu_gen)
+    obs = {}
+    for dev in (DEVICE, 'cpu'):
+        np.random.seed(MIN_SEED)
+        env = envs.Minimal(MIN_CHECK, device=dev)
+        state, world = env.reset(choices.to(dev))
+        seq = [world.obs]
+        for a in actions:
+            state, world = env.step(state, arrdict(actions=a.to(dev)))
+            seq.append(world.obs)
+        obs[dev] = torch.stack(seq).cpu()
+    card_err = float((obs[DEVICE] - obs['cpu']).abs().max())
+    if not torch.allclose(obs[DEVICE], obs['cpu'], **TOL):
+        raise AssertionError(f'minimal: card and CPU observations differ by up to '
+                             f'{card_err} (rtol=1e-5, atol=1e-6)')
+    log(f'check minimal card against CPU at {MIN_CHECK} envs, reset + {STEPS} steps: '
+        f'max abs error {card_err}')
+    del env, state, world, obs
+
+    t0 = time.perf_counter()
+    np.random.seed(MIN_SEED)
+    env = envs.Minimal(MIN_ENVS, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    c = env.core
+    log(f'minimal: {MIN_ENVS} envs built in {build_s:.2f} s; res {c.res}, lines '
+        f'{tuple(c.scenery.lines.shape)}')
+
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    fused.observe.launches = 0
+    state, world = env.reset(g)
+    shape = (MIN_ENVS, 1, 3, 1, c.res)
+    ok = torch.ones((), dtype=torch.bool, device=DEVICE)
+    for _ in range(STEPS):
+        actions = torch.randint(0, 7, (MIN_ENVS, 1), generator=g, device=DEVICE)
+        state, world = env.step(state, arrdict(actions=actions), g)
+        if tuple(world.obs.shape) != shape:
+            raise AssertionError(f'minimal obs has shape {tuple(world.obs.shape)}')
+        ok &= torch.isfinite(world.obs).all() & ((world.obs >= 0) & (world.obs <= 1)).all()
+        ok &= ((state.progress >= 0) & (state.progress <= 1)).all()
+    torch.cuda.synchronize()
+    if fused.observe.launches:
+        raise AssertionError(f'the un-fused path launched the observe kernel '
+                             f'{fused.observe.launches} times')
+    if not bool(ok):
+        raise AssertionError('minimal observations or progress out of range')
+    log(f'minimal main path: reset + {STEPS} steps, mean observation '
+        f'{float(world.obs.mean()):.4f}, mean progress {float(state.progress.mean()):.4f}')
+
+    step = stepper(torch, env, state, g)
+    windows, step_s, state = timed_windows(torch, step)
+    log(f'minimal throughput: {MIN_ENVS / step_s:.0f} env-steps/s '
+        f'({1e3 * step_s:.3f} ms/step over {len(windows)} windows of {STEPS} '
+        f'steps: {", ".join(f"{1e3 * w:.3f}" for w in windows)})')
+
+    # The un-fused render against the kernel on the same agents.
+    scn, agents = c.scenery, state.agents
+    r = modules.render(c, agents)
+    want = arrdict(indices=r.indices[:, :, 0], distances=r.distances[:, :, 0],
+                   screen=r.screen[:, :, :, 0])
+    args = (scn.lines, scn.lines_width, scn.line_tex_starts, scn.line_tex_widths,
+            render.pack_table(scn), agents.angles, agents.positions, c.res,
+            c.half_screen_width, c.agent_radius)
+    _, unfused = check_observe(torch, fused, render, args,
+                               dict(skip_dyn=scn.n_dynamic, want_seen=False), want=want)
+    log(f'check minimal un-fused render against the observe kernel at {MIN_ENVS} '
+        f'envs: {unfused}')
+    profile = (functools.partial(profile_steps, torch, 'minimal', step, 1e3 * step_s)
+               if opts.profile else None)
+    main = {'env': 'Minimal', 'n_envs': MIN_ENVS, 'res': c.res, 'subsample': 1,
+            'steps': STEPS, 'env_steps_per_s': MIN_ENVS / step_s,
+            'ms_per_step': 1e3 * step_s, 'ms_per_step_windows': [1e3 * w for w in windows],
+            'build_s': build_s, 'observe_launches': 0,
+            'card_vs_cpu_max_abs_err': card_err, 'unfused_vs_kernel': unfused}
+    return main, profile
+
+
+def real_plans(torch):
+    """The five cubicasa fixture plans, as the port's pipeline converts them:
+    written into a dataset zip in the cache directory (``MEGASTEP_TPU_CACHE``,
+    set before the port was imported) and converted in a process pool while
+    the card is in use. Each must equal a conversion in this process."""
+    import zipfile
+    from megastep_tpu_torch import cubicasa
+
+    root = Path(os.environ['MEGASTEP_TPU_CACHE']) / 'cubicasa'
+    if cubicasa.ROOT != root:
+        raise AssertionError(f'cubicasa.ROOT is {cubicasa.ROOT}, not {root}')
+    root.mkdir(parents=True, exist_ok=True)
+    svgs = {name: (FIXTURES / name / 'model.svg').read_text() for name in PLANS}
+    with zipfile.ZipFile(root / 'cubicasa5k.zip', 'w') as z:
+        for name, svg in svgs.items():
+            z.writestr(f'cubicasa5k/{name}/model.svg', svg)
+    t0 = time.perf_counter()
+    plans = cubicasa.geometry_data(backend='process')
+    convert_s = time.perf_counter() - t0
+    if len(plans) != len(PLANS) or not cubicasa.cache_path().exists():
+        raise AssertionError(f'{len(plans)} plans converted, cache '
+                             f'{cubicasa.cache_path().exists()}')
+    for g in plans:
+        ref = cubicasa.svg_geometry(g.id, svgs[g.id.split('/')[1]])
+        if not all(np.array_equal(g[k], ref[k]) for k in ('walls', 'lights', 'masks')):
+            raise AssertionError(f'{g.id}: the forked conversion differs')
+    log(f'cubicasa: {len(plans)} fixture plans converted in {convert_s:.2f} s by '
+        f'a process pool; walls {[len(g.walls) for g in plans]}, masks '
+        f'{[g.masks.shape for g in plans]}')
+    return plans, convert_s
+
+
+def deathmatch_real(torch, geoms):
+    """Deathmatch on real plans: K1b ('patch') against its plain version at
+    DM_CHECK and DM_ENVS agent-envs, where a scene's live line slots must
+    exceed the kernel's 64-slot candidate mask; the main path, reset +
+    REAL_DM_STEPS steps, with its respawns; its throughput over windows of
+    REAL_DM_STEPS steps. Returns its main_path line and kernel entry."""
+    from megastep_tpu_torch.arrdict import arrdict
+    from megastep_tpu_torch.ops import fused, render
+    from megastep_tpu_torch.perf import roofline
+    from megastep_tpu_torch.perf.step_rate import timed_windows
+
+    env = deathmatch_env(geoms, DM_CHECK, 1)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(1)
+    state, _ = env.reset(g)
+    angles = torch.rand(state.agents.angles.shape, generator=g, device=DEVICE) * 360 - 180
+    args, kw = env.observe_args(arrdict(angles=angles, positions=state.agents.positions))
+    _, small = check_observe(torch, fused, render, args, kw)
+    log(f'check patch on {REAL} at {DM_CHECK} agent-envs: {small}')
+    del env, state, args
+
+    t0 = time.perf_counter()
+    env = deathmatch_env(geoms, DM_ENVS, 0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    scn = env.core.scenery
+    live = int(scn.lines_width.max())
+    log(f'deathmatch on {REAL}: {DM_ENVS} agent-envs built in {build_s:.2f} s; lines '
+        f'{tuple(scn.lines.shape)} ({scn.n_dynamic} dynamic, {live} live at most) '
+        f'texels {tuple(scn.baked.shape)} lights {tuple(scn.lights.shape)}')
+    if live <= 64:
+        raise AssertionError(f'{live} live line slots: the plans do not pass the '
+                             'kernel\'s 64-slot candidate mask')
+
+    state, nums, _ = deathmatch_run(torch, env, REAL_DM_STEPS, 0)
+    if nums['launches'] != 1 + REAL_DM_STEPS:
+        raise AssertionError(f'observe kernel launched {nums["launches"]} times in '
+                             f'reset + {REAL_DM_STEPS} steps')
+    log(f'deathmatch on {REAL} main path: reset + {REAL_DM_STEPS} steps, {nums}')
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(2)
+    step = stepper(torch, env, state, g)
+    windows, step_s, state = timed_windows(torch, step, steps=REAL_DM_STEPS)
+    log(f'deathmatch on {REAL} throughput: {DM_ENVS / step_s:.0f} agent-steps/s '
+        f'({1e3 * step_s:.3f} ms/step over {len(windows)} windows of {REAL_DM_STEPS} '
+        f'steps: {", ".join(f"{1e3 * w:.3f}" for w in windows)})')
+
+    args, kw = env.observe_args(state.agents)
+    out, full = check_observe(torch, fused, render, args, kw)
+    log(f'check patch on {REAL} at {DM_ENVS} agent-envs: {full}')
+    ms, plain_ms = time_observe(torch, fused, args, kw)
+    bound_ms, bound_by, work = roofline.bound(scn, out, 0, scn.n_dynamic_texels)
+    log(f'observe (patch, {REAL}): {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
+        f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
+    main = {'env': 'Deathmatch', 'plans': REAL, 'agent_envs': DM_ENVS,
+            'scenes': scn.n_envs, 'agents': DM_AGENTS, 'res': DM_RES,
+            'subsample': SUBSAMPLE, 'steps': REAL_DM_STEPS,
+            'agent_steps_per_s': DM_ENVS / step_s, 'ms_per_step': 1e3 * step_s,
+            'ms_per_step_windows': [1e3 * w for w in windows], 'build_s': build_s,
+            'line_slots': scn.lines.shape[1], 'live_slots_max': live,
+            'texels': scn.baked.shape[1], 'shots': nums['shots'],
+            'respawns': nums['respawns']}
+    return main, kernel_entry('patch', nums['launches'], full['max_abs_err'], ms,
+                              plain_ms, bound_ms, bound_by, REAL)
 
 
 def profile_train(torch, run, rollout_ms, learner_ms):
@@ -919,6 +1146,14 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    # The cubicasa pipeline's cache directory, read when the port is imported:
+    # the real-plans phase writes its dataset zip and geometry cache there.
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as cache:
+        os.environ['MEGASTEP_TPU_CACHE'] = cache
+        return smoke(torch, opts)
+
+
+def smoke(torch, opts):
     from megastep_tpu_torch import floorplans, kernels
     from megastep_tpu_torch.perf.roofline import nvidia_smi
 
@@ -958,7 +1193,18 @@ def main():
     # both throughput readings.
     edges_phase(torch)
 
-    # 6. Training at the flagship config, and the other train checks.
+    # 6. Minimal, through the un-fused render; then Explorer and Deathmatch on
+    # real plans, the cubicasa fixtures converted by the port's pipeline.
+    torch.cuda.reset_peak_memory_stats()
+    minimal, minimal_profile = minimal_phase(torch, opts)
+    plans, convert_s = real_plans(torch)
+    real_explorer, real_explorer_kernel, _, _ = explorer_phase(
+        torch, argparse.Namespace(profile=False), plans, peaks, REAL)
+    real_explorer['convert_s'] = convert_s
+    real_deathmatch, real_deathmatch_kernel = deathmatch_real(torch, plans)
+    log(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+
+    # 7. Training at the flagship config, and the other train checks.
     train_line, train_profile = train_phase(torch, opts, geoms, card)
 
     # After every throughput reading, so that the profiler's tracing cannot
@@ -966,13 +1212,15 @@ def main():
     if opts.profile:
         explorer_profile()
         deathmatch_profile()
+        minimal_profile()
         train_profile()
 
-    for line in (explorer, deathmatch):
+    for line in (explorer, deathmatch, minimal, real_explorer, real_deathmatch):
         log(json.dumps({'main_path': line}))
     log(json.dumps({'train': train_line}))
     log(json.dumps({'roofline': roofline_line}))
-    log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel]}))
+    log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel,
+                                real_explorer_kernel, real_deathmatch_kernel]}))
     log(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

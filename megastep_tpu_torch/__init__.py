@@ -4,7 +4,9 @@ A port of :mod:`megastep_tpu` (the JAX package, which stays the reference) to
 torch tensors on an NVIDIA GPU. It keeps the JAX package's module and public
 names, so each function has a counterpart of the same name: the host scene
 compile and light bake, momentum physics, the 1-D raycast renderer, the
-dynamic re-bake, the Explorer and Deathmatch envs, and the training stack
+dynamic re-bake, the Minimal, Explorer and Deathmatch envs, the cubicasa
+floorplan pipeline (with its polygon booleans, raggeds and process pools, numpy
+and the standard library only), and the training stack
 (the LSTM and transformer agents, PPO/V-trace with clipped AMSGrad, and the FSM
 testbeds). The fused observe, a Pallas kernel in the JAX package, is a
 hand-written CUDA kernel here (``csrc/observe.cu``), and so is the roofline's
@@ -23,11 +25,13 @@ from . import constants, spaces, geometry, toys
 from .dotdict import dotdict
 
 __all__ = ['constants', 'spaces', 'geometry', 'toys', 'dotdict', 'arrdict',
-           'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'interop',
-           'kernels', 'perf', 'models', 'demo', 'rebar']
+           'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'cubicasa',
+           'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models', 'demo',
+           'rebar']
 
 _LAZY = {'arrdict', 'core', 'scene', 'modules', 'ops', 'envs', 'floorplans',
-         'interop', 'kernels', 'perf', 'models', 'demo', 'rebar'}
+         'cubicasa', 'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models',
+         'demo', 'rebar'}
 
 
 def __getattr__(name):

@@ -13,7 +13,7 @@ import torch
 from . import constants
 from .arrdict import arrdict
 from .scene import Scenery
-from .ops import physics as _physics
+from .ops import physics as _physics, render as _render
 
 AGENT_WIDTH = constants.AGENT_WIDTH
 TEXTURE_RES = constants.TEXTURE_RES
@@ -79,6 +79,13 @@ class Core:
         """Collision-resolved motion step. Returns ``(new_agents, progress)``;
         ``progress < 1`` marks a collision (see ``ops.physics``)."""
         return _physics.physics(self.scenery, agents, self.fps, self.agent_radius)
+
+    def render(self, agents, **kwargs):
+        """Raycast render pass, as torch ops. Returns an arrdict of
+        ``indices/locations/dots/distances`` (N, A, R) and ``screen`` (N, A, R,
+        3) (see :func:`megastep_tpu_torch.ops.render.render`)."""
+        return _render.render(self.scenery, agents, self.res,
+                              self.half_screen_width, self.agent_radius, **kwargs)
 
     def env_full(self, x):
         """An (n_envs,)-tensor full of ``x``."""

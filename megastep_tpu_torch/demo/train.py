@@ -23,6 +23,7 @@ import torch
 from ..arrdict import arrdict, stack
 from ..models import Agent
 from ..models.agent import f32_math
+from ..ops.geom import div
 from . import learning
 
 log = logging.getLogger(__name__)
@@ -68,7 +69,7 @@ def as_chunk(chunk):
     trajs = w.reset.sum().float()
     return dict(samples=torch.full((), n, dtype=torch.float32, device=trajs.device),
                 trajs=trajs,
-                step_reward=w.reward.sum() / n,
+                step_reward=div(w.reward.sum(), n),
                 traj_reward=w.reward.sum() / trajs.clamp(min=1))
 
 

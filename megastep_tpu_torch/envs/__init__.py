@@ -3,10 +3,11 @@
 
 Each env holds static config and device tables; ``reset(rng)`` and
 ``step(state, decision, rng)`` return ``(state, world)`` with ``world`` the
-decision/world arrdict protocol: ``obs``, ``reward``, ``reset``. Explorer and
-Deathmatch are ported; Minimal waits.
+decision/world arrdict protocol: ``obs``, ``reward``, ``reset`` (Minimal's world
+holds ``obs`` only, as in the JAX package).
 """
 from .deathmatch import Deathmatch
 from .explorer import Explorer
+from .minimal import Minimal
 
-__all__ = ['Deathmatch', 'Explorer']
+__all__ = ['Deathmatch', 'Explorer', 'Minimal']

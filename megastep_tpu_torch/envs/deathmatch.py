@@ -17,7 +17,7 @@ plain torch version.
 import numpy as np
 import torch
 
-from .. import core, floorplans, modules, scene, spaces
+from .. import core, cubicasa, modules, scene, spaces
 from ..arrdict import arrdict, torchify
 from ..dotdict import dotdict, mapping
 from ..ops import bake, fused, render
@@ -49,8 +49,9 @@ class Deathmatch:
         ``PARITY.md``; the same at the default ``n_agents=4``).
     :param n_agents: agents per scene.
     :param geometries: geometry list, one per scene; ``None`` means
-        ``floorplans.sample(n_scenes, seed=1)``, which is what the JAX package's
-        ``cubicasa.sample`` returns when the dataset cache is absent.
+        :func:`cubicasa.sample(n_scenes) <megastep_tpu_torch.cubicasa.sample>`,
+        as in the JAX package: real floorplans from the dataset cache, or
+        ``floorplans.sample(n_scenes, seed=1)`` when the dataset is absent.
     :param subsample: rays pooled into one observed pixel.
     :param draw_fused: draw the agent models inside the observe kernel, from the
         static lines (``draw_model``), instead of writing the drawn models into
@@ -74,7 +75,7 @@ class Deathmatch:
         device = scene.resolve_device(device)
         n_scenes = max(n_envs // n_agents, 1)
         if geometries is None:
-            geometries = floorplans.sample(n_scenes, seed=1)
+            geometries = cubicasa.sample(n_scenes)
         self.scene_order = scene.striped_order(geometries, n_agents)
         geometries = [geometries[i] for i in self.scene_order]
         scenery = scene.scenery(geometries, n_agents, random=random, device=device)

@@ -16,7 +16,7 @@ are dropped.
 """
 import torch
 
-from .. import core, floorplans, modules, scene
+from .. import core, cubicasa, modules, scene
 from ..arrdict import arrdict
 from ..dotdict import dotdict
 from ..ops import fused, render
@@ -28,9 +28,10 @@ class Explorer:
     momentum movement, reward per newly-seen texel.
 
     :param n_envs: number of environments.
-    :param geometries: geometry list; ``None`` means ``floorplans.sample(n_envs,
-        seed=1)``, which is what the JAX package's ``cubicasa.sample`` returns
-        when the dataset cache is absent.
+    :param geometries: geometry list; ``None`` means
+        :func:`cubicasa.sample(n_envs) <megastep_tpu_torch.cubicasa.sample>`,
+        as in the JAX package: real floorplans from the dataset cache, or
+        ``floorplans.sample(n_envs, seed=1)`` when the dataset is absent.
     :param subsample: rays pooled into one observed pixel.
     :param random: numpy ``RandomState`` for the textures, lights and spawn
         tables, consumed in the JAX package's order.
@@ -46,7 +47,7 @@ class Explorer:
                  device='cuda', **kwargs):
         device = scene.resolve_device(device)
         if geometries is None:
-            geometries = floorplans.sample(n_envs, seed=1)
+            geometries = cubicasa.sample(n_envs)
         self.scene_order = scene.striped_order(geometries, 1)
         geometries = [geometries[i] for i in self.scene_order]
         scenery = scene.scenery(geometries, 1, random=random, device=device)

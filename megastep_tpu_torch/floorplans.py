@@ -5,7 +5,7 @@ dataset (``megastep/cubicasa.py``): varied multi-room layouts with
 door openings, room polygons, centroid lights, and occupancy masks. Generated by
 recursive binary space partitioning, pure numpy, no downloads — the default geometry
 source for the demo envs when the cubicasa cache is absent (see
-``megastep_tpu.cubicasa.sample``). A copy of :mod:`megastep_tpu.floorplans`:
+:func:`megastep_tpu_torch.cubicasa.sample`). A copy of :mod:`megastep_tpu.floorplans`:
 the same seed gives the same floorplans in both packages.
 """
 import numpy as np

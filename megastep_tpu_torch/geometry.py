@@ -4,7 +4,7 @@ Counterpart of ``megastep/geometry.py``, rebuilt without the shapely/
 rasterio dependencies: the occupancy-mask rasterizer and polygon centroid are
 implemented in pure numpy, so procedural geometries (``megastep_tpu_torch.toys``)
 work with zero optional deps. A copy of :mod:`megastep_tpu.geometry`; the SVG
-floorplan parser (``megastep_tpu.cubicasa``) is not ported yet.
+floorplan parser is :mod:`megastep_tpu_torch.cubicasa`.
 
 A *geometry* is a dotdict with:
   * ``walls``: (n_walls, 2, 2) float array of wall segment endpoints, in meters.

@@ -18,6 +18,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..dotdict import dotdict
+from ..ops.geom import div
 from .init import conv_1xk, linear
 
 #: The 1-D conv stack of ``MultiImageIntake``: (channels, kernel, stride).
@@ -68,7 +69,7 @@ class MultiImageIntake(nn.Module):
         A, C, H, W = self.space_shape
         lead = obs.shape[:-4]
         if obs.dtype == torch.uint8:
-            obs = obs / 255.
+            obs = div(obs.float(), 255.)
         x = obs.reshape(-1, C, H, W)
         for i in range(len(CONVS)):
             x = F.relu(getattr(self, f'Conv_{i}')(x))
@@ -110,9 +111,18 @@ def intake(space, width, generator=None):
 
 def categorical(logits, generator=None):
     """One draw from each categorical over the last axis of ``logits``, by the
-    Gumbel-max trick (as ``jax.random.categorical`` draws), from ``generator``."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=logits.dtype)
+    Gumbel-max trick (as ``jax.random.categorical`` draws), from ``generator``.
+
+    :param generator: a ``torch.Generator``, or the uniform draws themselves,
+        shaped like ``logits``. As in JAX, a draw is floored at the dtype's
+        smallest normal number, so a 0 gives finite noise, not -inf.
+    """
+    if isinstance(generator, torch.Tensor):
+        u = generator.to(logits.device, logits.dtype)
+    else:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                       dtype=logits.dtype)
+    u = u.clamp(min=torch.finfo(logits.dtype).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), -1)
 
 

@@ -1,14 +1,15 @@
-"""Env-building modules: movement, observers and spawns — the ones Explorer and
-Deathmatch need.
+"""Env-building modules: movement systems, observers, spawns and lifespans.
 
 Counterpart of :mod:`megastep_tpu.modules`. A module object holds static
 configuration (action tables, spawn tables, scales) as tensors on the core's
 device, and its ``__call__`` returns new tensors rather than mutating its inputs.
 Randomness is an explicit input: a ``torch.Generator`` or the draws themselves.
 
-Not ported yet: ``SimpleMovement``, ``RandomLifespans``, the conv-layout
-``render`` helper and the TPU-only one-hot variants (``pool_mean(dot=)``,
-``RandomSpawns(onehot=)``).
+:class:`RGB` and :class:`Depth` observe through the un-fused render
+(:func:`render`, torch ops; Minimal uses it), and the Explorer and Deathmatch
+pool the fused observe's output in :func:`fused_obs` instead. Not ported: the
+TPU-only one-hot variants (``pool_mean(dot=)``, ``RandomSpawns(onehot=)``) and
+the plotting snapshots (``RGB.plot_state``, ``RandomLifespans.state``).
 """
 import numpy as np
 import torch
@@ -26,6 +27,43 @@ to_global_frame = geom.to_global_frame
 _VELOCITY_BASIS = np.array(
     [[0., 0.], [0., 1.], [0., -1.], [1., 0.], [-1., 0.], [0., 0.], [0., 0.]])
 _ANGVELOCITY_BASIS = np.array([0., 0., 0., 0., 0., +1., -1.])
+
+
+def _draws(rng, shape, low, high):
+    """Integers in ``[low, high)`` for a ``shape`` batch: drawn from ``rng`` if
+    it is a ``torch.Generator``, else ``rng`` itself, as given draws of that
+    shape."""
+    if isinstance(rng, torch.Generator):
+        return torch.randint(low, high, shape, generator=rng, device=rng.device)
+    if tuple(rng.shape) != tuple(shape):
+        raise ValueError(f'draws have shape {tuple(rng.shape)}, expected {tuple(shape)}')
+    return rng
+
+
+class SimpleMovement:
+    """A momentum-free movement system: seven discrete actions set the velocity
+    directly (reference ``modules.py:24-66``).
+
+    :var space: the action space to present to the controlling network.
+    """
+
+    def __init__(self, core, speed=10, ang_speed=180, n_agents=None):
+        self.core = core
+        self._actionset = torchify(arrdict(
+            velocity=speed / core.fps * _VELOCITY_BASIS,
+            angvelocity=ang_speed / core.fps * _ANGVELOCITY_BASIS), core.device)
+        self.space = spaces.MultiDiscrete(n_agents or core.n_agents, 7)
+
+    def __call__(self, agents, decision):
+        """Sets agent (angular) velocity from ``decision.actions`` and steps the
+        physics. Returns ``(new_agents, progress)``."""
+        delta = self._actionset[decision.actions.long()]
+        agents = type(agents)(
+            angles=agents.angles,
+            positions=agents.positions,
+            angvelocity=delta.angvelocity,
+            velocity=to_global_frame(agents.angles, delta.velocity))
+        return self.core.physics(agents)
 
 
 class MomentumMovement:
@@ -57,6 +95,16 @@ class MomentumMovement:
         return self.core.physics(agents)
 
 
+def render(core, agents, **kwargs):
+    """Renders and reshapes for convolution stacks: adds the height-1 axis to
+    every key, and permutes ``screen`` to (n_envs, n_agents, channels, 1, res),
+    the layout conv modules expect (reference ``modules.py:126-136``)."""
+    r = core.render(agents, **kwargs)
+    r = arrdict({k: v[:, :, None] for k, v in r.items()})
+    r['screen'] = r.screen.permute(0, 1, 4, 2, 3)
+    return r
+
+
 def downsample(screen, subsample):
     """Factors the final width dimension into (width/subsample, subsample); chase
     with a mean/min/max over the trailing axis (reference ``modules.py:138-145``)."""
@@ -84,8 +132,8 @@ def fused_obs(out, subsample, agent_radius, max_depth):
 
 class Depth:
     """Depth observations in [0, 1]: 1 at the near plane, 0 at ``max_depth`` meters
-    (reference ``modules.py:147-189``). Holds the space and scales; the Explorer
-    computes the pooled depth in :func:`fused_obs`.
+    (reference ``modules.py:147-189``). The Explorer and Deathmatch compute the
+    pooled depth in :func:`fused_obs` from this module's scales.
 
     :var space: the observation space to present to the controlling network.
     """
@@ -97,11 +145,18 @@ class Depth:
         self.max_depth = max_depth
         self.subsample = subsample
 
+    def __call__(self, r=None, agents=None):
+        """Returns an (n_env, n_agent, 1, 1, res/subsample)-tensor of depths.
+        Pass ``r`` (the output of :func:`render`) to reuse an existing render."""
+        r = render(self.core, agents) if r is None else r
+        depth = depth_transform(r.distances, self.core.agent_radius, self.max_depth)
+        return downsample(depth, self.subsample).mean(-1)[:, :, :, None]
+
 
 class RGB:
-    """Linear-RGB observations in [0, 1] (reference ``modules.py:191-238``). Holds
-    the space and subsample; the Explorer computes the pooled RGB in
-    :func:`fused_obs`.
+    """Linear-RGB observations in [0, 1] (reference ``modules.py:191-238``). The
+    Explorer and Deathmatch compute the pooled RGB in :func:`fused_obs` from
+    this module's subsample.
 
     :var space: the observation space to present to the controlling network.
     """
@@ -111,6 +166,12 @@ class RGB:
         self.core = core
         self.space = spaces.MultiImage(n_agents, 3, 1, core.res // subsample)
         self.subsample = subsample
+
+    def __call__(self, r=None, agents=None):
+        """Returns an (n_env, n_agent, 3, 1, res/subsample)-tensor. Pass ``r`` to
+        reuse an existing render."""
+        r = render(self.core, agents) if r is None else r
+        return downsample(r.screen, self.subsample).mean(-1)
 
 
 class IMU:
@@ -174,13 +235,7 @@ class RandomSpawns:
     def choices(self, shape, rng):
         """Spawn slots for a ``shape`` batch: drawn from ``rng`` if it is a
         ``torch.Generator``, else ``rng`` itself, as given draws of that shape."""
-        if isinstance(rng, torch.Generator):
-            return torch.randint(0, self.n_spawns, shape, generator=rng,
-                                 device=rng.device)
-        if tuple(rng.shape) != tuple(shape):
-            raise ValueError(f'spawn choices have shape {tuple(rng.shape)}, '
-                             f'expected {tuple(shape)}')
-        return rng
+        return _draws(rng, shape, 0, self.n_spawns)
 
     def __call__(self, agents, reset, rng):
         """Returns new agents with the ``reset``-masked agents respawned.
@@ -199,3 +254,47 @@ class RandomSpawns:
             positions=torch.where(reset[..., None], positions, agents.positions),
             angvelocity=torch.where(reset, 0., agents.angvelocity),
             velocity=torch.where(reset[..., None], 0., agents.velocity))
+
+
+class RandomLifespans:
+    """Randomized per-agent lifespans, for decorrelating otherwise-synchronous env
+    batches (reference ``modules.py:328-381``).
+
+    Lifespan counters live in an explicit state arrdict created by
+    :meth:`init_state` and passed through ``__call__``. Lifespans are drawn from
+    ``[min_lifespan, max_lifespan)``, as ``jax.random.randint`` draws them.
+    """
+
+    def __init__(self, core, max_lifespan, min_lifespan=None):
+        self.core = core
+        self.min_lifespan = max_lifespan // 2 if min_lifespan is None else min_lifespan
+        self.max_lifespan = max_lifespan
+
+    def _lifespans(self, rng):
+        shape = (self.core.n_envs, self.core.n_agents)
+        drawn = _draws(rng, shape, self.min_lifespan, self.max_lifespan)
+        return drawn.to(self.core.device, torch.int32)
+
+    def init_state(self, rng):
+        """The state at the start: nothing lived yet, lifespans drawn from
+        ``rng``, a ``torch.Generator`` or the (n_envs, n_agents) draws."""
+        return arrdict(
+            lifespans=torch.zeros((self.core.n_envs, self.core.n_agents),
+                                  dtype=torch.int32, device=self.core.device),
+            max_lifespans=self._lifespans(rng))
+
+    def __call__(self, state, rng, reset=None):
+        """Increments time-lived; agents past their lifespan (or in ``reset``) get
+        a True in the returned mask and a re-rolled lifespan. The re-rolls are
+        drawn on every call, for every agent, as in the JAX package.
+
+        :return: ``(new_state, reset_mask)``.
+        """
+        lifespans = state.lifespans + 1
+        reset = torch.zeros_like(lifespans, dtype=torch.bool) if reset is None else reset
+        reset = (lifespans >= state.max_lifespans) | reset
+        rerolled = self._lifespans(rng)
+        new_state = arrdict(
+            lifespans=torch.where(reset, 0, lifespans),
+            max_lifespans=torch.where(reset, rerolled, state.max_lifespans))
+        return new_state, reset

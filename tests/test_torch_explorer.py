@@ -92,9 +92,16 @@ def test_explorer_trajectory_matches_jax():
                                    state.agents[k].numpy(), **TOL)
 
 
-def test_explorer_generator_draws_and_default_geometries():
+def test_explorer_generator_draws_and_default_geometries(tmp_path, monkeypatch):
     """With a torch.Generator in place of given choices, and geometries=None
-    (``floorplans.sample(n_envs, seed=1)``), the env runs and stays consistent."""
+    (``cubicasa.sample(n_envs)``, offline here: ``floorplans.sample(n_envs,
+    seed=1)``), the env runs and stays consistent."""
+    from megastep_tpu_torch import cubicasa
+
+    def no_download(*args, **kwargs):
+        raise RuntimeError('offline test: no download')
+    monkeypatch.setattr(cubicasa, 'ROOT', tmp_path)
+    monkeypatch.setattr(cubicasa, 'download', no_download)
     env = Explorer(2, res=32, random=np.random.RandomState(0), device='cpu')
     g = torch.Generator().manual_seed(0)
     state, world = env.reset(g)

@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'megastep_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'megastep_tpu', 'bs4', 'lxml'))
 print(len(names))
 print(','.join(bad))
 print(','.join(names))
@@ -35,10 +35,32 @@ def test_import_pulls_in_no_jax():
     n, bad, names = (out.stdout + '\n\n').split('\n')[:3]
     assert int(n) >= 15, out.stdout
     assert bad == '', f'importing the port pulled in {bad}'
-    # The training stack's subpackages are among the modules imported.
+    # The training stack's subpackages and the cubicasa pipeline are among the
+    # modules imported.
     for name in ('models.agent', 'models.heads', 'models.lstm', 'models.transformer',
-                 'demo.learning', 'demo.train', 'rebar.fsm', 'perf.train_flagship'):
+                 'demo.learning', 'demo.train', 'rebar.fsm', 'perf.train_flagship',
+                 'cubicasa', 'polygons', 'ragged', 'rebar.parallel', 'envs.minimal'):
         assert f'megastep_tpu_torch.{name}' in names.split(','), name
+
+
+_CUBICASA_PROBE = """
+import sys
+from megastep_tpu_torch import cubicasa
+print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in ('bs4', 'lxml'))))
+"""
+
+
+def test_cubicasa_needs_no_bs4_or_lxml():
+    """The card's machine has neither bs4 nor lxml: the SVG conversion must not
+    import them, not even where they are installed."""
+    env = {**os.environ, 'PYTHONPATH': str(ROOT)}
+    out = subprocess.run([sys.executable, '-c', _CUBICASA_PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ''
+    from megastep_tpu_torch import cubicasa
+    svg = (ROOT / 'tests' / 'fixtures' / 'cubicasa' / 'loft_d' / 'model.svg').read_text()
+    assert len(cubicasa.svg_geometry('loft_d', svg).walls) == 28
 
 
 def test_chip_smoke_imports_no_jax():
@@ -58,6 +80,8 @@ def test_entry_points_need_a_device_choice_without_a_gpu():
     from megastep_tpu_torch import envs, scene, toys
     with pytest.raises(RuntimeError, match='no CUDA device'):
         envs.Explorer(4)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        envs.Minimal(4)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         scene.scenery([toys.box()], random=np.random.RandomState(0))
     assert scene.scenery([toys.box()], random=np.random.RandomState(0),

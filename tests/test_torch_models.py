@@ -128,6 +128,38 @@ def test_sample_draws_from_the_generator():
     assert (heads.MultiDiscreteOutput.sample(sure, torch.Generator().manual_seed(2)) == 3).all()
 
 
+def test_uint8_images_scale_through_div(jax_models):
+    """A uint8 image is scaled by a true division by 255 (``ops.geom.div``),
+    and the intake then matches flax's on the same bytes."""
+    from megastep_tpu_torch.ops.geom import div
+    jm = jax_models
+    raw = np.random.RandomState(7).randint(0, 256, (T, B, 2, 3, 1, W)).astype(np.uint8)
+    jmod = jm.heads.intake(jm.spaces.MultiImage(2, 3, 1, W), 32)
+    params, want = _flax(jm, jmod, jm.jnp.asarray(raw))
+    mod = _load(jm, heads.intake(spaces.MultiImage(2, 3, 1, W), 32), params)
+    got = mod(torch.from_numpy(raw))
+    _close(got, want)
+    assert torch.equal(got, mod(div(torch.from_numpy(raw).float(), 255.)))
+
+
+def test_gumbel_draw_floors_a_zero_as_jax_does(jax_models):
+    """A uniform draw of exactly 0 gets jax.random.categorical's floor, the
+    smallest normal f32 (``jax._src.random._gumbel``), and so finite noise: the
+    action it belongs to can still be picked."""
+    jnp = jax_models.jnp
+    logits = torch.tensor([[10., 0., 0.], [0., 0., 0.], [0., 3., 0.]])
+    u = torch.tensor([[0., .5, .5], [0., .5, .25], [.1, 0., .9]])
+    tiny = jnp.finfo(jnp.float32).tiny
+    ju = jnp.maximum(jnp.asarray(u.numpy()), tiny)
+    want = jnp.argmax(jnp.asarray(logits.numpy()) - jnp.log(-jnp.log(ju)), -1)
+    got = heads.categorical(logits, u)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.tolist() == [0, 1, 2]        # row 0 picks the action whose draw is 0
+    # From a generator, the same floor holds: the draws are finite.
+    g = torch.Generator().manual_seed(0)
+    assert heads.categorical(logits, g).shape == (3,)
+
+
 def _lstm_inputs(seed):
     rs = np.random.RandomState(seed)
     return rs.randn(T, B, 32).astype(np.float32), rs.rand(T, B) < .25

@@ -403,3 +403,16 @@ def test_one_flagship_chunk_at_256_envs(card):
     run['carry'], metrics = run.step(run.carry, run.generator)
     assert fused.observe.launches == 32
     assert train.is_finite(metrics) and metrics['minibatches'] >= 1
+
+
+def test_as_chunk_divides_through_div():
+    """``step_reward`` is a true division by the sample count (``ops.geom.div``),
+    at a count whose reciprocal is not exact."""
+    from megastep_tpu_torch.ops.geom import div
+    rs = np.random.RandomState(0)
+    reward = torch.from_numpy(rs.rand(3, 7).astype(np.float32))
+    reset = torch.from_numpy(rs.rand(3, 7) < .3)
+    stats = train.as_chunk(arrdict(world=arrdict(reward=reward, reset=reset)))
+    assert float(stats['samples']) == 21
+    assert torch.equal(stats['step_reward'], div(reward.sum(), 21))
+    assert torch.equal(stats['traj_reward'], reward.sum() / reset.sum().float())
