@@ -6,9 +6,10 @@ names, so each function has a counterpart of the same name: the host scene
 compile and light bake, momentum physics, the 1-D raycast renderer, the
 dynamic re-bake, the Minimal, Explorer and Deathmatch envs, the cubicasa
 floorplan pipeline (with its polygon booleans, raggeds and process pools, numpy
-and the standard library only), and the training stack
+and the standard library only), the training stack
 (the LSTM and transformer agents, PPO/V-trace with clipped AMSGrad, and the FSM
-testbeds). The fused observe, a Pallas kernel in the JAX package, is a
+testbeds), and the run directory ``train()`` writes (rebar's stats, logs and
+stored weights, and full-carry checkpoints in :mod:`.parallel.checkpoint`). The fused observe, a Pallas kernel in the JAX package, is a
 hand-written CUDA kernel here (``csrc/observe.cu``), and so is the roofline's
 f32 probe (``csrc/vpu_probe.cu``, in :mod:`.perf.roofline`).
 
@@ -27,11 +28,11 @@ from .dotdict import dotdict
 __all__ = ['constants', 'spaces', 'geometry', 'toys', 'dotdict', 'arrdict',
            'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'cubicasa',
            'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models', 'demo',
-           'rebar']
+           'rebar', 'parallel']
 
 _LAZY = {'arrdict', 'core', 'scene', 'modules', 'ops', 'envs', 'floorplans',
          'cubicasa', 'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models',
-         'demo', 'rebar'}
+         'demo', 'rebar', 'parallel'}
 
 
 def __getattr__(name):

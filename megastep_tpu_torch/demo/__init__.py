@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`megastep_tpu.demo` (the reference ``megastep/demo/__init__.py``):
 the RL math (:mod:`.learning`) and the rollout → minibatched PPO learner with the
-clipped AMSGrad optimizer and the KL early stop (:mod:`.train`). ``demo()``,
-``resume``, ``profile`` and the rebar-backed stats and checkpoints come with
-the rebar and parallel slices.
+clipped AMSGrad optimizer and the KL early stop (:mod:`.train`), whose
+``train()`` writes the run directory (stats, logs, stored weights) and
+full-carry checkpoints. ``demo()`` comes with the plotting and recording
+slice.
 """
 from . import learning
 from .train import (as_chunk, init_carry, learn, make_train_step, optimize, optimizer,

@@ -17,6 +17,7 @@ the carry, where the JAX carry holds ``params`` and ``opt_state``.
 """
 import logging
 import math
+import time
 
 import torch
 
@@ -157,6 +158,25 @@ class ClippedAMSGrad:
             torch.maximum(nu_max, nu / c2, out=nu_max)
             p.add_(mu / c1 / (torch.sqrt(nu_max) + EPS) * -self.lr)
 
+    def state_dict(self):
+        """The optimizer's state, optax's ``opt_state`` in the JAX carry: the
+        step count and the three moment lists (tensors on the parameters'
+        device)."""
+        return {'count': self.count, 'mu': list(self.mu), 'nu': list(self.nu),
+                'nu_max': list(self.nu_max)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state):
+        """Copies a :meth:`state_dict` into this optimizer's moments, in place."""
+        for k in ('mu', 'nu', 'nu_max'):
+            mine = getattr(self, k)
+            if len(state[k]) != len(mine) or any(s.shape != m.shape
+                                                 for s, m in zip(state[k], mine)):
+                raise ValueError(f'{k}: the state does not fit these parameters')
+            for m, s in zip(mine, state[k]):
+                m.copy_(s)
+        self.count = int(state['count'])
+
 
 def optimizer(params, lr=3e-4, max_grad_norm=100.):
     """The demo optimizer: AMSGrad behind a global-norm-100 gradient clip
@@ -256,19 +276,39 @@ def init_carry(env, agent, opt, generator):
 
 
 def train(env=None, n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024, width=256,
-          lr=3e-4, steps=None, seed=0, device='cuda', **hp):
+          lr=3e-4, steps=None, run_name=None, seed=0, resume=None, profile=None,
+          full_checkpoint=None, checkpoint_every=25, device='cuda', **hp):
     """The training entry point (reference ``train()``,
-    ``demo/__init__.py:109-148``): Explorer + 256-wide LSTM agent + clipped
-    AMSGrad, for ``steps`` chunks, or until interrupted (Ctrl-C ends the run
-    and returns what finished) when ``steps`` is None.
+    ``demo/__init__.py:109-148``; the JAX package's ``demo/train.py:265-354``):
+    Explorer + 256-wide LSTM agent + clipped AMSGrad, with stats, logs and
+    throttled stored weights in the run directory (``rebar.paths.ROOT``/run).
+    Runs for ``steps`` chunks, or until interrupted: Ctrl-C is deferred to the
+    chunk's end, where the chunk's stats, weights and checkpoint are written,
+    and then raises KeyboardInterrupt.
 
     :param env: an env; ``None`` builds ``Explorer(n_envs, device=device)``. A
         given env sets the device.
+    :param run_name: the run directory's name; ``None`` means
+        ``'%Y-%m-%d %H%M%S <EnvClass>'``. The directory is cleared first.
     :param seed: seeds the agent's initial parameters (drawn on the CPU, so
-        the same on every device) and the run's generator.
+        the same on every device) and the run's generator. A resumed run
+        draws from the seed's stream again, as JAX's key restarts there.
+    :param resume: a run name (or negative index) whose newest stored weights
+        to load into the agent before training.
+    :param profile: the chunk index at which to trace one chunk with
+        ``torch.profiler`` into the run's ``profile`` directory (a Chrome
+        trace); None disables.
+    :param full_checkpoint: a directory of full-carry checkpoints
+        (:mod:`megastep_tpu_torch.parallel.checkpoint`). If it holds one,
+        training resumes from it: parameters, optimizer state, env state,
+        last world and recurrent state. Saved every ``checkpoint_every``
+        chunks, numbered on from the restored step.
     :param hp: ``kl_limit`` and :func:`ppo_loss`'s ``entropy``/``gamma``/``clip``.
     :return: ``(carry, metrics)``, metrics a list of one dict per chunk.
     """
+    from ..rebar import interrupting, paths, stats, storing, widgets
+    from ..rebar import logging as rlogging
+
     if env is None:
         from ..envs import Explorer
         env = Explorer(n_envs, device=device)
@@ -278,18 +318,74 @@ def train(env=None, n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024, width
     opt = optimizer(agent.parameters(), lr)
     generator = torch.Generator(device).manual_seed(seed)
     carry = init_carry(env, agent, opt, generator)
+    if resume is not None:
+        agent.load_state_dict(storing.load(resume)['agent'])
+        log.info('resumed params from run %r', resume)
+    ckpt_base = 0
+    if full_checkpoint is not None:
+        from ..parallel import checkpoint
+        restored = checkpoint.restore(full_checkpoint, carry)
+        if restored is not None:
+            carry = restored
+            # Continue the step numbering past the restored checkpoint.
+            ckpt_base = checkpoint.latest_step(full_checkpoint)
+            log.info('resumed full carry from %s (step %s)', full_checkpoint, ckpt_base)
     step = make_train_step(env, buffer_size, batch_size, **hp)
 
+    run_name = run_name or f'{time.strftime("%Y-%m-%d %H%M%S")} {type(env).__name__}'
+    paths.clear(run_name)
+    compositor = widgets.Compositor()
     history = []
-    try:
-        while steps is None or len(history) < steps:
-            carry, metrics = step(carry, generator)
-            history.append(metrics)
-            log.info('chunk %d: traj_reward %.4f, kl_div %.4f', len(history),
-                     metrics['traj_reward'], metrics['kl_div'])
-    except KeyboardInterrupt:
-        log.info('interrupted after %d chunks', len(history))
+    with rlogging.via_dir(run_name, compositor), stats.via_dir(run_name, compositor), \
+            interrupting.interrupter() as interrupt:
+        i = 0
+        while steps is None or i < steps:
+            t0 = time.time()
+            if i == profile:
+                carry, metrics = _profiled(step, carry, generator, run_name)
+            else:
+                carry, metrics = step(carry, generator)
+            history.append(dict(metrics))
+            step_s = time.time() - t0
+            t1 = time.time()
+            storing.store_latest(run_name, dict(agent=carry.agent), throttle=60)
+            if full_checkpoint is not None and (i + 1) % checkpoint_every == 0:
+                checkpoint.save(full_checkpoint, ckpt_base + i + 1, carry)
+            # The JAX step has no minibatch count; its run writes no such channel.
+            metrics.pop('minibatches')
+            with stats.defer():
+                stats.rate('sample-rate/actor', int(metrics.pop('samples')))
+                stats.mean('traj-reward/mean', metrics.pop('traj_reward'))
+                stats.mean('step-reward', metrics.pop('step_reward'))
+                stats.cumsum('count/traj', metrics.pop('trajs'))
+                for k, v in metrics.items():
+                    stats.mean(f'opt/{k}', v)
+                stats.duty('duty/step', step_s)
+                stats.duty('duty/store', time.time() - t1)
+                stats.device.vitals(throttle=10)
+            log.info('step %d done', i)
+            i += 1
+            interrupt.check()
     return carry, history
+
+
+def _profiled(step, carry, generator, run_name):
+    """One chunk under ``torch.profiler`` (CPU activity, and CUDA's on the
+    card), the device synced before the trace closes; the Chrome trace goes
+    to the run's ``profile`` directory."""
+    from ..rebar import paths
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    cuda = generator.device.type == 'cuda'
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        carry, metrics = step(carry, generator)
+        if cuda:
+            torch.cuda.synchronize()
+    trace = paths.path(run_name, 'profile').with_suffix('.json')
+    prof.export_chrome_trace(str(trace))
+    log.info('profile trace of a chunk in %s', trace)
+    return carry, metrics
 
 
 def is_finite(metrics):

@@ -1,9 +1,21 @@
 """rebar: the experiment-support library (counterpart of :mod:`megastep_tpu.rebar`).
 
-Ported so far: :mod:`.fsm`, the tabular testbeds that validate the training
-stack, and :mod:`.parallel`, the pools the cubicasa conversion fans out over;
-stats, logging, storing, widgets and interrupting come with the rebar slice.
+The run directory (:mod:`.paths`, :mod:`.numpy`'s ``.npr`` streams,
+:mod:`.stats`, :mod:`.logging`, :mod:`.storing`), :mod:`.widgets`,
+:mod:`.interrupting` and :mod:`.contextlib`; :mod:`.fsm`, the tabular testbeds
+that validate the training stack; and :mod:`.parallel`, the pools the cubicasa
+conversion fans out over. Nothing here imports pandas, IPython or ipywidgets
+until a function that reads frames or draws a notebook pane is called.
 """
-from . import fsm, parallel
+import importlib
 
-__all__ = ['fsm', 'parallel']
+from ..dotdict import dotdict
+
+# The real arrdict *module* (the package root would otherwise give the class).
+arrdict = importlib.import_module('megastep_tpu_torch.arrdict')
+
+from . import (contextlib, paths, numpy, stats, storing, parallel, widgets,  # noqa: E402
+               interrupting, logging, fsm)
+
+__all__ = ['dotdict', 'arrdict', 'paths', 'numpy', 'stats', 'storing', 'parallel',
+           'widgets', 'interrupting', 'logging', 'fsm', 'contextlib']

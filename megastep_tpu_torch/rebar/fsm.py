@@ -9,7 +9,7 @@ against before it spends device-hours on the raycast envs.
 The env follows the port's env protocol: ``reset(rng)`` and ``step(state,
 decision, rng)`` over an explicit token state, with ``rng`` a ``torch.Generator``
 on the env's device, so the same training loop runs on FSMs and on the raycast
-envs. ``dataframe`` (pandas) is not ported yet.
+envs. ``dataframe`` imports pandas when called.
 """
 import numpy as np
 import torch
@@ -99,6 +99,23 @@ class FSM:
             if np.sqrt((change**2).mean()) < eps:
                 break
         return arrdict(value=value, policy=q.argmax(-1))
+
+    def dataframe(self, **kwargs):
+        """A readable table of the solved MDP (pandas is imported here)."""
+        import pandas as pd
+        soln = self.solve(**kwargs)
+        trans = self._trans.cpu().numpy()
+        successor = trans[np.arange(self.n_states), soln.policy].argmax(-1)
+        df = pd.DataFrame(dict(
+            name=list(self._names),
+            obs=[tuple(f'{x:.2f}' for x in o) for o in self._obs.cpu().numpy()],
+            term=self._terminal.cpu().numpy(),
+            start=self._start.cpu().numpy(),
+            value=soln.value,
+            policy=soln.policy,
+            successor=[self._names[i] for i in successor])).sort_index()
+        df.index.name = 'idx'
+        return df
 
     def __repr__(self):
         s, a, _ = self._trans.shape

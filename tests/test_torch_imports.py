@@ -39,8 +39,49 @@ def test_import_pulls_in_no_jax():
     # modules imported.
     for name in ('models.agent', 'models.heads', 'models.lstm', 'models.transformer',
                  'demo.learning', 'demo.train', 'rebar.fsm', 'perf.train_flagship',
-                 'cubicasa', 'polygons', 'ragged', 'rebar.parallel', 'envs.minimal'):
+                 'cubicasa', 'polygons', 'ragged', 'rebar.parallel', 'envs.minimal',
+                 'rebar.contextlib', 'rebar.paths', 'rebar.numpy', 'rebar.stats.categories',
+                 'rebar.stats.writing', 'rebar.stats.device', 'rebar.stats.reading',
+                 'rebar.widgets', 'rebar.logging', 'rebar.interrupting', 'rebar.storing',
+                 'parallel.checkpoint'):
         assert f'megastep_tpu_torch.{name}' in names.split(','), name
+
+
+_BLOCKED_PROBE = """
+import importlib, sys, tempfile
+for name in ('pandas', 'IPython', 'ipywidgets'):
+    sys.modules[name] = None  # any import of them raises ImportError
+import torch
+torch.set_num_threads(1)
+for name in ('rebar', 'rebar.stats', 'rebar.storing', 'parallel.checkpoint', 'demo.train'):
+    importlib.import_module('megastep_tpu_torch.' + name)
+from megastep_tpu_torch.rebar import fsm, numpy as rnumpy, paths, storing
+from megastep_tpu_torch.parallel import checkpoint
+train = importlib.import_module('megastep_tpu_torch.demo.train')
+d = tempfile.mkdtemp()
+paths.ROOT = d + '/traces'
+carry, history = train.train(fsm.MatchCoin(8, device='cpu'), buffer_size=4, batch_size=16,
+                             width=8, steps=2, run_name='blocked', full_checkpoint=d + '/ck',
+                             checkpoint_every=1)
+assert len(history) == 2 and checkpoint.latest_step(d + '/ck') == 2
+assert storing.load('blocked')['agent']
+print(len(rnumpy.Reader('blocked', 'stats').read()))
+print(','.join(sorted(m for m in sys.modules if sys.modules[m] is not None and
+                      m.split('.')[0] in ('pandas', 'IPython', 'ipywidgets', 'jax', 'megastep_tpu'))))
+"""
+
+
+def test_run_directory_needs_no_pandas_or_ipython(tmp_path):
+    """The chip machine has no pandas, IPython or ipywidgets: with all three
+    blocked, the rebar write side, stored weights, checkpoints and a MatchCoin
+    ``train(run_name=..., full_checkpoint=...)`` import and run."""
+    env = {**os.environ, 'PYTHONPATH': str(ROOT)}
+    out = subprocess.run([sys.executable, '-c', _BLOCKED_PROBE], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    channels, loaded = out.stdout.splitlines()[-2:]
+    assert int(channels) >= 14
+    assert loaded == ''
 
 
 _CUBICASA_PROBE = """

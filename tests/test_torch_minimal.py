@@ -218,10 +218,12 @@ class _MinimalWorld(Minimal):
         return state, world
 
 
-def test_train_on_minimal():
+def test_train_on_minimal(tmp_path, monkeypatch):
+    from megastep_tpu_torch.rebar import paths
+    monkeypatch.setattr(paths, 'ROOT', str(tmp_path))  # train() writes a run directory
     np.random.seed(0)
     env = _MinimalWorld(4, device='cpu')
     carry, history = train.train(env=env, width=8, buffer_size=4, batch_size=16,
-                                 steps=2, device='cpu')
+                                 steps=2, device='cpu', run_name='minimal')
     assert len(history) == 2 and all(train.is_finite(m) for m in history)
     assert carry.world.obs.shape == (4, 1, 3, 1, RES)

@@ -337,7 +337,9 @@ def test_learns_match_coin():
     assert np.mean(rewards[-5:]) > .3, rewards
 
 
-def test_train_entry_point_on_the_cpu():
+def test_train_entry_point_on_the_cpu(tmp_path, monkeypatch):
+    from megastep_tpu_torch.rebar import paths
+    monkeypatch.setattr(paths, 'ROOT', str(tmp_path))  # train() writes a run directory
     carry, history = train.train(fsm.ObliviousCoin(8, device='cpu'), buffer_size=4,
                                  batch_size=16, width=8, steps=3)
     assert len(history) == 3 and all(train.is_finite(m) for m in history)
@@ -416,3 +418,20 @@ def test_as_chunk_divides_through_div():
     assert float(stats['samples']) == 21
     assert torch.equal(stats['step_reward'], div(reward.sum(), 21))
     assert torch.equal(stats['traj_reward'], reward.sum() / reset.sum().float())
+
+
+def test_grad_noise_holds_one_device_to_itself_and_to_float64():
+    """``perf/grad_noise.measure`` with the CPU as the card: the same device
+    gives the same gradients bit for bit, reversed columns change only the
+    order of the sums, and f32 lies within 1e-5 × the largest gradient of the
+    float64 step (exact here: 8 columns of 4 steps)."""
+    from megastep_tpu_torch import floorplans
+    from megastep_tpu_torch.perf import grad_noise, train_flagship
+    run = train_flagship.build('explorer', 16, 4, 32, 16, geometries=floorplans.sample(4),
+                               device='cpu', res=160, subsample=4)
+    run['carry'], _ = run.step(run.carry, run.generator)
+    got = grad_noise.measure(run, 8, T=4, card='cpu')
+    assert got['card_vs_cpu'] == got['card_reversed_vs_cpu_reversed'] == 0
+    assert got['card_vs_f64'] == got['cpu_vs_f64']
+    bound = 1e-5 * got['grad_scale']
+    assert 0 < got['cpu_vs_f64'] < bound and got['cpu_vs_cpu_reversed'] < bound
