@@ -37,7 +37,15 @@ drives the port's paths at full size:
   ``train()`` on the flagship env for 2 chunks with stats, logs, stored weights
   and a full-carry checkpoint, each read back; a restore that equals the saved
   carry tensor for tensor, a continued run, a resume from the stored weights;
-  then a profiled MatchCoin chunk and a SIGINT deferred to a chunk boundary.
+  then a profiled MatchCoin chunk and a SIGINT deferred to a chunk boundary;
+- ``demo()`` (``megastep_tpu_torch.demo.train.demo``): the agent the run
+  directory stored, 256 wide, rolled out on the flagship env for 32 frames,
+  then a fresh 256-wide agent on Deathmatch at 4,096 agent-envs for 16; each
+  step's snapshot checked against its observation and, where this machine has
+  matplotlib and an encoder backend (Pillow, PyAV or ffmpeg), plotted in the
+  port's process pool and encoded (else a recorder of the snapshots stands in
+  for the encoder, and the ``demo`` line says what is missing); the kernel
+  launch of one demo step of each held against its plain version.
 
 Any failed phase raises, and the script then exits non-zero without its last
 line. Run it from the repository root:
@@ -46,7 +54,8 @@ line. Run it from the repository root:
 
 It prints progress lines, one ``{"main_path": {...}}`` JSON line per env and
 set of plans, a ``{"train": {...}}`` line, a ``{"roofline": {...}}`` line, a
-``{"run_dir": {...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
+``{"run_dir": {...}}`` line, a ``{"demo": {...}}`` line, a ``{"kernels":
+[...]}`` JSON line, the card's
 name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits with code 2 and prints no
 result.
@@ -98,6 +107,11 @@ TF_ENVS, TF_BATCH = 2048, 4096           # the transformer core's chunk
 DM_TRAIN_ENVS, DM_TRAIN_BATCH, DM_TRAIN_CHUNKS = 4096, 8192, 2
 COIN_ENVS, COIN_WIDTH, COIN_LR, COIN_BUFFER, COIN_CHUNKS = 32, 16, 3e-3, 8, 30
 SIGINT_AFTER_S = .5        # the run-directory phase's SIGINT, after the first env step
+# The demo phase: demo() on the flagship env with its stored agent, then on
+# Deathmatch with a fresh 256-wide agent.
+DEMO_LENGTH, DEMO_D = 32, 1                  # frames; the env recorded
+DM_DEMO_ENVS, DM_DEMO_LENGTH, DM_DEMO_D = 4096, 16, 0
+DEMO_CHECK_STEP = 1        # the demo step whose observe launch is held against plain
 
 #: The Deathmatch modes of the kernel, as observe() arguments past the inputs.
 #: 'patch' and 'fast_div' read this frame's drawn lines, 'draw_model' the static
@@ -1315,6 +1329,224 @@ def run_dir_phase(torch, env, tmp, train_line):
             'sigint_chunks': chunks, 'phase_s': phase_s, 'card': train_line['card']}
 
 
+def plotting_support():
+    """What the port's encoder can draw and encode with here, without importing
+    it: ``(found, missing)``, ``missing`` naming what demo() lacks to plot."""
+    import importlib.util
+    import shutil
+    found = {name: importlib.util.find_spec(mod) is not None
+             for name, mod in (('matplotlib', 'matplotlib'), ('pillow', 'PIL'), ('pyav', 'av'))}
+    found['ffmpeg'] = shutil.which('ffmpeg')
+    missing = [] if found['matplotlib'] else ['matplotlib']
+    if not (found['pillow'] or found['pyav'] or found['ffmpeg']):
+        missing.append('Pillow (or PyAV, or an ffmpeg binary)')
+    return found, missing
+
+
+class DemoEnv:
+    """An env for one demo() run that records, for each step, CUDA events
+    around ``step``, env ``d``'s observation copied to the host, and the
+    agents of step ``DEMO_CHECK_STEP``; and the wall time of ``state``."""
+
+    def __init__(self, torch, env, d):
+        self._env, self._torch, self._d = env, torch, d
+        self.events, self.obs, self.state_s, self.agents = [], [], 0., None
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def event(self):
+        e = self._torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def step(self, env_state, decision, g):
+        start = self.event()
+        env_state, world = self._env.step(env_state, decision, g)
+        self.events.append((start, self.event()))
+        if len(self.obs) == DEMO_CHECK_STEP:
+            self.agents = env_state.agents  # what this step's observe saw
+        A, d = self._env.core.n_agents, self._d
+        self.obs.append({k: world.obs[k][d * A:(d + 1) * A, 0].cpu().numpy()
+                         for k in ('rgb', 'd')})
+        return env_state, world
+
+    def state(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return self._env.state(*args)
+        finally:
+            self.state_s += time.perf_counter() - t0
+
+
+def demo_run(torch, env, agent, length, d, missing, **kwargs):
+    """One ``demo()`` on ``env`` with ``agent``: counts the observe kernel's
+    launches in it, times the rollout (CUDA events around each agent forward
+    and env step) apart from the snapshots and the encoder (wall clock),
+    checks every snapshot against that step's observation, then holds the
+    kernel launch of step ``DEMO_CHECK_STEP`` against its plain version on
+    the same inputs (no ray may differ) and times both. With ``missing``
+    empty the port's encoder plots and encodes in its process pool; else a
+    recorder of the snapshots stands in for it. Returns the run's numbers,
+    the check's numbers and output, and the kernel's inputs."""
+    import importlib
+    from megastep_tpu_torch.ops import fused, render
+    from megastep_tpu_torch.rebar import recording
+    train = importlib.import_module('megastep_tpu_torch.demo.train')
+
+    probe = DemoEnv(torch, env, d)
+    A = env.core.n_agents
+    tex_width = int(env.core.scenery.tex_width[d])
+    real = recording.ParallelEncoder
+    seconds = {'encoder': 0.}
+
+    class Encoder:
+        """The port's ParallelEncoder (or, with ``missing``, nothing), with
+        every snapshot checked and the encoder's wall time kept."""
+
+        def __init__(self, f, fps=20, N=None, backend='process'):
+            self.inner = None if missing else real(f, fps, N, backend)
+            self.frames = 0
+
+        def _timed(self, fn):
+            t0 = time.perf_counter()
+            if self.inner is not None:
+                fn()
+            seconds['encoder'] += time.perf_counter() - t0
+
+        def __enter__(self):
+            self._timed(lambda: self.inner.__enter__())
+            return self
+
+        def __exit__(self, *exc):
+            self._timed(lambda: self.inner.__exit__(*exc))
+            return False
+
+        def __call__(self, snap):
+            check_snapshot(snap, probe.obs[-1], A, tex_width)
+            self.frames += 1
+            self._timed(lambda: self.inner(snap))
+
+    forward = []
+    hooks = [agent.register_forward_pre_hook(lambda m, a: forward.append([probe.event()])),
+             agent.register_forward_hook(lambda m, a, o: forward[-1].append(probe.event()))]
+    try:
+        with set_value(recording, 'ParallelEncoder', Encoder):
+            fused.observe.launches = 0
+            t0 = time.perf_counter()
+            encoder = train.demo(env=probe, agent=agent, length=length, d=d, **kwargs)
+            torch.cuda.synchronize()
+            demo_s = time.perf_counter() - t0
+            launches = fused.observe.launches
+    finally:
+        for h in hooks:
+            h.remove()
+    if launches != 1 + length or encoder.frames != length:
+        raise AssertionError(f'demo: {launches} observe launches and {encoder.frames} '
+                             f'frames, not {1 + length} and {length}')
+    if next(agent.parameters()).device.type != env.device.type:
+        raise AssertionError("the agent is not on the env's device")
+    agent_ms = [a.elapsed_time(b) for a, b in forward]
+    step_ms = [a.elapsed_time(b) for a, b in probe.events]
+    nums = {'frames': length, 'observe_launches': launches, 'demo_s': demo_s,
+            'rollout_ms_per_step': (sum(agent_ms) + sum(step_ms)) / length,
+            'agent_ms_per_step': sum(agent_ms) / length,
+            'env_ms_per_step': sum(step_ms) / length,
+            'snapshot_s_per_frame': probe.state_s / length,
+            'encoder_s_per_frame': seconds['encoder'] / length,
+            'bytes': None, 'mimetype': None, 'frames_decoded': None}
+    if not missing:
+        video = encoder.inner.result()
+        nums.update(bytes=len(video), mimetype=encoder.inner.mimetype)
+        if encoder.inner.mimetype == 'gif':
+            from io import BytesIO
+            from PIL import Image
+            nums['frames_decoded'] = Image.open(BytesIO(video)).n_frames
+            if nums['frames_decoded'] != length:
+                raise AssertionError(f'the GIF holds {nums["frames_decoded"]} frames')
+        if not video:
+            raise AssertionError('the encoder wrote no bytes')
+
+    args, kw = env.observe_args(probe.agents)
+    out, check = check_observe(torch, fused, render, args, kw)
+    if check['differing']:
+        raise AssertionError(f'demo step {DEMO_CHECK_STEP}: {check["differing"]} rays '
+                             'differ from the plain version')
+    return nums, check, out, (args, kw)
+
+
+def check_snapshot(snap, obs, n_agents, tex_width):
+    """A demo snapshot: numpy leaves (and Python numbers) only, the step's
+    observation of its env on the host, and a finite value per bar. Explorer's
+    seen mask spans the env's texels; Deathmatch's value bar input, env
+    ``d``'s one value as in the JAX demo(), broadcasts over its agents."""
+    for where, x in carry_leaves(snap, 'state'):
+        if not isinstance(x, (np.ndarray, np.generic, int, float)):
+            raise AssertionError(f'{where} is a {type(x).__name__}, not host data')
+    for k in ('rgb', 'd'):
+        if not np.array_equal(snap[k], obs[k]):
+            raise AssertionError(f'snapshot {k} differs from the step\'s observation')
+    value = snap.decision.value
+    if value.shape != (1,) or not np.isfinite(value).all():
+        raise AssertionError(f'decision.value {value}')
+    if 'seen' in snap and snap.seen.shape != (tex_width,):
+        raise AssertionError(f'seen {snap.seen.shape}, not ({tex_width},)')
+    if 'health' in snap and (len(snap.health) != n_agents
+                             or np.broadcast_shapes(value.shape, (n_agents,)) != (n_agents,)):
+        raise AssertionError(f'{len(snap.health)} health bars, value {value.shape}')
+
+
+def demo_phase(torch, flagship_env, geoms):
+    """``demo()`` on the card: the flagship Explorer env with the agent that
+    ``run_dir_phase`` stored ('smoke-flagship', 256 wide), DEMO_LENGTH frames
+    of env DEMO_D; then Deathmatch at DM_DEMO_ENVS agent-envs with a fresh
+    256-wide agent, DM_DEMO_LENGTH frames. Each is plotted and encoded in the
+    port's process pool where this machine has matplotlib and an encoder
+    backend. Returns the ``demo`` line and the two kernel entries."""
+    from megastep_tpu_torch.models import Agent
+    from megastep_tpu_torch.ops import fused
+    from megastep_tpu_torch.perf import roofline
+
+    t_phase = time.perf_counter()
+    found, missing = plotting_support()
+    log(f'demo: matplotlib {found["matplotlib"]}, Pillow {found["pillow"]}, PyAV '
+        f'{found["pyav"]}, ffmpeg {found["ffmpeg"]}; plotted: {not missing}'
+        + (f' (missing {", ".join(missing)})' if missing else ''))
+    workers = max(len(os.sched_getaffinity(0)) // 2, 1)
+    line = {'plotted': not missing, 'missing': missing, 'found': found, 'workers': workers}
+    entries = []
+    # Explorer loads the stored weights (demo()'s default); Deathmatch's
+    # agent keeps its fresh ones.
+    runs = (('explorer', lambda: flagship_env, DEMO_LENGTH, DEMO_D, 'explorer', True),
+            ('deathmatch', lambda: deathmatch_env(geoms, DM_DEMO_ENVS, 2), DM_DEMO_LENGTH,
+             DM_DEMO_D, 'patch', False))
+    for name, make_env, length, d, mode, stored in runs:
+        env = make_env()
+        agent = Agent(env.obs_space, env.action_space, width=TRAIN_WIDTH,
+                      generator=torch.Generator().manual_seed(5))
+        kwargs = dict(run='smoke-flagship') if stored else dict(params=agent.state_dict())
+        nums, check, out, (args, kw) = demo_run(torch, env, agent, length, d, missing,
+                                                N=workers, **kwargs)
+        scn = env.core.scenery
+        ms, plain_ms = time_observe(torch, fused, args, kw)
+        if mode == 'explorer':
+            bound_ms, bound_by, work = roofline.bound(scn, out, scn.n_dynamic)
+        else:
+            bound_ms, bound_by, work = roofline.bound(scn, out, 0, scn.n_dynamic_texels)
+        log(f'demo {name}: {env.n_envs} envs, {nums}; check of step {DEMO_CHECK_STEP}: '
+            f'{check}; observe ({mode}) {ms:.4f} ms/launch, plain {plain_ms:.3f} ms, '
+            f'bound {bound_ms:.4f} ms ({bound_by}; {work})')
+        line[name] = dict(nums, n_envs=env.n_envs, d=d, check=check)
+        entry = kernel_entry(mode, nums['observe_launches'], check['max_abs_err'], ms,
+                             plain_ms, bound_ms, bound_by)
+        entry['name'] = f'observe ({mode}, demo)'
+        entries.append(entry)
+        del env, agent, out, args, kw
+    line['phase_s'] = time.perf_counter() - t_phase
+    log(f'demo phase: {line["phase_s"]:.1f} s')
+    return line, entries
+
+
 def roofline_phase(torch, kernels, card):
     """K2 against its plain version on the JAX probe's input and on ragged
     sizes, bit for bit; its SASS; its times; then the three peak probes.
@@ -1459,6 +1691,9 @@ def smoke(torch, opts, tmp):
 
     # 8. train() with its run directory, on the flagship env.
     run_dir_line = run_dir_phase(torch, flagship_env, tmp, train_line)
+
+    # 9. demo(): the stored flagship agent recorded on its env, then Deathmatch.
+    demo_line, demo_kernels = demo_phase(torch, flagship_env, geoms)
     del flagship_env
 
     # After every throughput reading, so that the profiler's tracing cannot
@@ -1474,8 +1709,10 @@ def smoke(torch, opts, tmp):
     log(json.dumps({'train': train_line}))
     log(json.dumps({'roofline': roofline_line}))
     log(json.dumps({'run_dir': run_dir_line}))
+    log(json.dumps({'demo': demo_line}))
     log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel,
-                                real_explorer_kernel, real_deathmatch_kernel]}))
+                                real_explorer_kernel, real_deathmatch_kernel,
+                                *demo_kernels]}))
     log(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ import numpy as np
 import torch
 
 from . import constants
-from .arrdict import arrdict
+from .arrdict import arrdict, numpyify
+from .dotdict import dotdict
 from .scene import Scenery
 from .ops import physics as _physics, render as _render
 
@@ -97,3 +98,28 @@ class Core:
         return torch.full((self.n_envs, self.n_agents), x, dtype=_DTYPES[type(x)],
                           device=self.device)
 
+
+    def state(self, agents, progress, e=0):
+        """Numpy snapshot of env ``e`` for plotting, on the host
+        (``megastep_tpu/core.py:99-110``)."""
+        return dotdict(
+            n_envs=self.n_envs, n_agents=self.n_agents, res=self.res, fov=self.fov,
+            agent_radius=self.agent_radius, fps=self.fps,
+            scenery=self.scenery.state(e),
+            agents=arrdict(
+                angles=numpyify(agents.angles[e]),
+                positions=numpyify(agents.positions[e])),
+            progress=numpyify(progress[e]))
+
+    @classmethod
+    def plot_state(cls, state, ax=None, zoom=False):
+        import matplotlib.pyplot as plt
+        from . import plotting
+        ax = ax or plt.axes()
+        plotting.plot_lines(ax, state, zoom=zoom)
+        plotting.plot_lights(ax, state)
+        plotting.adjust_view(ax, state, zoom=zoom)
+        plotting.plot_fov(ax, state)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        return ax

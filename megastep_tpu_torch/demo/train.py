@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from ..arrdict import arrdict, stack
+from ..arrdict import arrdict, numpyify, stack
 from ..models import Agent
 from ..models.agent import f32_math
 from ..ops.geom import div
@@ -391,3 +391,64 @@ def _profiled(step, carry, generator, run_name):
 def is_finite(metrics):
     """Whether every metric of a chunk is a finite number."""
     return all(math.isfinite(v) for v in metrics.values())
+
+
+@torch.no_grad()
+def demo(run=-1, length=None, test=True, N=None, env=None, agent=None, params=None,
+         d=0, seed=0, backend='process', device='cuda'):
+    """Rolls out a trained agent and encodes a video of env ``d`` (reference
+    ``demo()``, ``demo/__init__.py:150-173``; the JAX package's
+    ``demo/train.py:357-391``). Returns the
+    :class:`~megastep_tpu_torch.rebar.recording.ParallelEncoder`, whose
+    ``result()`` is the video's bytes.
+
+    Each step's snapshot (``env.state(..., d)`` with the agent's value of env
+    ``d`` as ``decision.value``) is copied to the host and plotted by
+    ``env.plot_state`` in the encoder's worker pool; the rollout stays on the
+    env's device.
+
+    :param run: the run whose newest stored weights to load when ``params`` is
+        None.
+    :param length: frames to record; None records until an env resets.
+    :param test: act greedily (the argmax) instead of sampling.
+    :param N: the encoder's worker count (see ``ParallelEncoder``).
+    :param env: an env; ``None`` builds ``Explorer(d + 1, device=device)``. A
+        given env sets the device.
+    :param agent: the agent module; ``None`` builds
+        ``Agent(env.obs_space, env.action_space)`` (width 256).
+    :param params: a ``state_dict`` loaded strictly into the agent; ``None``
+        means ``storing.load(run)['agent']``.
+    :param seed: seeds the ``torch.Generator``, on the env's device, that the
+        env's draws and any sampled actions come from.
+    :param backend: the encoder pool's backend: 'process', 'thread' or 'serial'.
+    """
+    from ..envs import Explorer
+    from ..rebar import recording, storing
+
+    env = Explorer(d + 1, device=device) if env is None else env
+    agent = Agent(env.obs_space, env.action_space) if agent is None else agent
+    if params is None:
+        params = storing.load(run)['agent']
+    agent.load_state_dict(params)
+    agent.to(env.device)
+
+    generator = torch.Generator(env.device).manual_seed(seed)
+    env_state, world = env.reset(generator)
+    agent_state = agent.initial_state(env.n_envs)
+
+    steps = 0
+    with recording.ParallelEncoder(env.plot_state, N=N, backend=backend) as encoder:
+        while True:
+            decision, agent_state = agent(_expand_t(world), agent_state, generator=generator,
+                                          sample=True, test=test, value=True)
+            decision = _squeeze_t(decision)
+            env_state, world = env.step(env_state, decision, generator)
+            steps += 1
+            if length is None and bool(world.reset.any()):
+                break
+            state = env.state(env_state, world, d)
+            state['decision'] = arrdict(value=numpyify(decision.value[d]).reshape(-1))
+            encoder(state)
+            if steps == length:
+                break
+    return encoder

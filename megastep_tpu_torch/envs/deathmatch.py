@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from .. import core, cubicasa, modules, scene, spaces
-from ..arrdict import arrdict, torchify
+from ..arrdict import arrdict, numpyify, torchify
 from ..dotdict import dotdict, mapping
 from ..ops import bake, fused, render
 
@@ -226,3 +226,75 @@ class Deathmatch:
         state = arrdict(agents=agents, progress=progress,
                         health=health, damage=damage, matchings=matchings)
         return state, arrdict(obs=expand(obs), reward=reward, reset=reset.reshape(-1))
+
+    def state(self, state, world, e=0):
+        """Numpy snapshot of scene ``e`` for plotting, on the host
+        (``megastep_tpu/envs/deathmatch.py:357-369``)."""
+        obs = collapse(world.obs, self.core.n_agents)
+        return arrdict(
+            core=self.core.state(state.agents, state.progress, e),
+            rgb=numpyify(obs.rgb[e]),
+            d=numpyify(obs.d[e]),
+            health=numpyify(state.health[e]),
+            damage=numpyify(state.damage[e]),
+            matchings=numpyify(state.matchings[e]),
+            bounds=numpyify(self._bounds[e]))
+
+    @classmethod
+    def plot_state(cls, state):
+        """The plan with the agents' lines of fire and the out-of-bounds
+        rectangle, each agent's view, and bars of health, damage inflicted
+        and, where the state holds a ``decision``, value. The rectangle takes
+        the reference's ``(rows, cols)`` bounds reversed, as the JAX env does."""
+        import matplotlib.collections as mcollections
+        import matplotlib.patches as mpatches
+        import matplotlib.pyplot as plt
+        from .. import plotting
+
+        n_agents = len(state.health)
+        show_value = 'decision' in state
+
+        fig = plt.figure()
+        gs = plt.GridSpec(n_agents, 4 if show_value else 3, fig)
+        colors = [f'C{i}' for i in range(n_agents)]
+
+        plan = core.Core.plot_state(state.core, plt.subplot(gs[:-1, :-1]))
+
+        origin, dest = state.matchings.nonzero()
+        if len(origin):
+            lines = state.core.agents.positions[np.stack([origin, dest], 1)]
+            linecolors = np.array(colors)[origin]
+            plan.add_collection(mcollections.LineCollection(
+                lines, color=linecolors, linewidth=1, alpha=.5))
+
+        size = state.bounds[::-1] + 2 * CLEARANCE
+        plan.add_artist(mpatches.Rectangle(
+            (-CLEARANCE, -CLEARANCE), *size,
+            linewidth=1, edgecolor='k', facecolor=(0., 0., 0., 0.)))
+
+        images = {'rgb': state.rgb, 'd': state.d}
+        plotting.plot_images(images, [plt.subplot(gs[i, -1]) for i in range(n_agents)])
+
+        ax = plt.subplot(gs[-1, 0])
+        ax.barh(np.arange(n_agents), state.health, color=colors)
+        ax.set_ylabel('health')
+        ax.set_yticks([])
+        ax.invert_yaxis()
+        ax.set_xlim(0, 1)
+
+        ax = plt.subplot(gs[-1, 1])
+        ax.barh(np.arange(n_agents), state.damage, color=colors)
+        ax.set_ylabel('inflicted')
+        ax.set_yticks([])
+        ax.invert_yaxis()
+
+        if show_value:
+            ax = plt.subplot(gs[-1, 2])
+            ax.barh(np.arange(n_agents), state.decision.value, color=colors)
+            ax.set_ylabel('value')
+            ax.set_yticks([])
+            ax.invert_yaxis()
+        return fig
+
+    def display(self, state, world, e=0):
+        return self.plot_state(self.state(state, world, e))

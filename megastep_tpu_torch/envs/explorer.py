@@ -14,10 +14,11 @@ reference writes ``seen[texindices] = True`` with miss-pixels carrying index -1,
 which spuriously marks the *last* texel of the whole batch as seen. Here misses
 are dropped.
 """
+import numpy as np
 import torch
 
 from .. import core, cubicasa, modules, scene
-from ..arrdict import arrdict
+from ..arrdict import arrdict, numpyify
 from ..dotdict import dotdict
 from ..ops import fused, render
 from ..ops.geom import div
@@ -157,3 +158,44 @@ class Explorer:
             agents=agents, progress=progress, seen=seen,
             potential=potential, lengths=lengths)
         return state, arrdict(obs=obs, reward=reward, reset=reset)
+
+    def state(self, state, world, e=0):
+        """Numpy snapshot of env ``e`` for plotting, on the host
+        (``megastep_tpu/envs/explorer.py:293-304``)."""
+        T = int(self.core.scenery.tex_width[e])
+        potential = numpyify(state.potential[e])
+        return arrdict(
+            core=self.core.state(state.agents, state.progress, e),
+            rgb=numpyify(world.obs.rgb[e]),
+            d=numpyify(world.obs.d[e]),
+            potential=potential,
+            seen=numpyify(state.seen[e, :T]),
+            length=numpyify(state.lengths[e]),
+            max_length=potential + 200)
+
+    @classmethod
+    def plot_state(cls, state):
+        import matplotlib.pyplot as plt
+        from .. import plotting
+        fig = plt.figure()
+        gs = plt.GridSpec(2, 2, fig, 0, 0, 1, 1)
+
+        alpha = .1 + .9 * state.seen.astype(float)
+        state = state.copy()
+        state['core'] = state.core.copy()
+        state.core['scenery'] = state.core.scenery.copy()
+        state.core.scenery['textures'] = state.core.scenery.textures.copy()
+        state.core.scenery.textures['vals'] = np.concatenate(
+            [state.core.scenery.textures.vals, alpha[:, None]], 1)
+        ax = core.Core.plot_state(state.core, plt.subplot(gs[:, 0]))
+
+        images = {'rgb': state.rgb, 'd': state.d}
+        plotting.plot_images(images, [plt.subplot(gs[:, 1])])
+
+        s = (f'length: {int(state.length):d}/{state.max_length:.0f}\n'
+             f'potential: {state.potential:.0f}')
+        ax.annotate(s, (5., 5.), xycoords='axes points')
+        return fig
+
+    def display(self, state, world, e=0):
+        return self.plot_state(self.state(state, world, e))

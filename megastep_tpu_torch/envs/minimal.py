@@ -7,7 +7,8 @@ as torch ops, :func:`megastep_tpu_torch.modules.render`), as the JAX Minimal
 renders with XLA ops and not the fused observe kernel.
 """
 from .. import core, modules, scene, toys
-from ..arrdict import arrdict
+from ..arrdict import arrdict, numpyify
+from ..dotdict import dotdict
 
 
 class Minimal:
@@ -61,3 +62,23 @@ class Minimal:
         agents, progress = self.movement(state.agents, decision)
         state = arrdict(agents=agents, progress=progress)
         return state, arrdict(obs=self.rgb(agents=agents))
+
+    def state(self, state, world, e=0):
+        """Numpy snapshot of env ``e`` for plotting, on the host."""
+        return dotdict(
+            core=self.core.state(state.agents, state.progress, e),
+            rgb=numpyify(world.obs[e]))
+
+    @classmethod
+    def plot_state(cls, state):
+        import matplotlib.pyplot as plt
+        fig = plt.figure()
+        gs = plt.GridSpec(1, 3, fig)
+        plan = plt.subplot(gs[:, :2])
+        core.Core.plot_state(state.core, plan)
+        im = plt.subplot(gs[:, -1])
+        modules.RGB.plot_state(state.rgb, [im])
+        return fig
+
+    def display(self, state, world, e=0):
+        return self.plot_state(self.state(state, world, e))

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import spaces, geometry
-from .arrdict import arrdict, torchify
+from .arrdict import arrdict, numpyify, torchify
 from .ops import geom
 from .ops.geom import div
 
@@ -173,6 +173,16 @@ class RGB:
         r = render(self.core, agents) if r is None else r
         return downsample(r.screen, self.subsample).mean(-1)
 
+    @classmethod
+    def plot_state(cls, state, axes=None):
+        """Plots a numpy RGB observation with imshow."""
+        import matplotlib.pyplot as plt
+        from . import plotting
+        n_agents = state.shape[0]
+        axes = plt.subplots(n_agents, 1, squeeze=False) if axes is None else axes
+        plotting.plot_images({'rgb': state}, axes)
+        return axes
+
 
 class IMU:
     """Inertial measurements: (angular velocity, medial velocity, lateral velocity)
@@ -298,3 +308,8 @@ class RandomLifespans:
             lifespans=torch.where(reset, 0, lifespans),
             max_lifespans=torch.where(reset, rerolled, state.max_lifespans))
         return new_state, reset
+
+    def state(self, state, e):
+        """Numpy snapshot of env ``e`` for plotting."""
+        return arrdict(lifespan=numpyify(state.lifespans[e]),
+                       max_lifespan=numpyify(state.max_lifespans[e]))

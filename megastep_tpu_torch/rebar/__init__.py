@@ -3,9 +3,11 @@
 The run directory (:mod:`.paths`, :mod:`.numpy`'s ``.npr`` streams,
 :mod:`.stats`, :mod:`.logging`, :mod:`.storing`), :mod:`.widgets`,
 :mod:`.interrupting` and :mod:`.contextlib`; :mod:`.fsm`, the tabular testbeds
-that validate the training stack; and :mod:`.parallel`, the pools the cubicasa
-conversion fans out over. Nothing here imports pandas, IPython or ipywidgets
-until a function that reads frames or draws a notebook pane is called.
+that validate the training stack; :mod:`.parallel`, the pools the cubicasa
+conversion and the video encoder fan out over; :mod:`.recording`, the video
+encoder; and :mod:`.plots`, the stats dashboards. Nothing here imports
+matplotlib, Pillow, pandas, IPython or ipywidgets until a function that draws,
+encodes, reads frames or shows a notebook pane is called.
 """
 import importlib
 
@@ -15,7 +17,8 @@ from ..dotdict import dotdict
 arrdict = importlib.import_module('megastep_tpu_torch.arrdict')
 
 from . import (contextlib, paths, numpy, stats, storing, parallel, widgets,  # noqa: E402
-               interrupting, logging, fsm)
+               interrupting, logging, fsm, recording, plots)
 
 __all__ = ['dotdict', 'arrdict', 'paths', 'numpy', 'stats', 'storing', 'parallel',
-           'widgets', 'interrupting', 'logging', 'fsm', 'contextlib']
+           'widgets', 'interrupting', 'logging', 'fsm', 'contextlib', 'recording',
+           'plots']

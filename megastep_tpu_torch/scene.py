@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from . import constants
+from .arrdict import arrdict, numpyify
 
 # Ten bland colors (the reference's palette, scene.py:10-20).
 COLORS = [
@@ -195,6 +196,22 @@ class Scenery:
         fields untouched."""
         return self.replace(**{f: getattr(self, f)[g0:g1] for f in _PER_ENV})
 
+    def state(self, e):
+        """Snapshot of env ``e`` with padding trimmed, as an arrdict of numpy
+        arrays on the host (``megastep_tpu/scene.py:226-240``)."""
+        L = int(self.lines_width[e])
+        T = int(self.tex_width[e])
+        return arrdict(
+            model=numpyify(self.model),
+            lines=numpyify(self.lines[e, :L]),
+            lights=numpyify(self.lights[e, :int(self.lights_width[e])]),
+            textures=arrdict(
+                vals=numpyify(self.textures[e, :T]),
+                widths=numpyify(self.line_tex_widths[e, :L])),
+            baked=arrdict(
+                vals=numpyify(self.baked[e, :T]),
+                widths=numpyify(self.line_tex_widths[e, :L])))
+
 
 def padded_sizes(geometries, n_agents=1):
     """The padded (Lmax, Kmax, Tmax) this geometry list compiles to, computed
@@ -291,3 +308,15 @@ def scenery(geometries, n_agents=1, random=None, bake_fn='auto', pad_to=None,
         from .ops import bake
         scn = bake.bake(scn)
     return scn
+
+
+def display(scn, e=0):
+    """Plots the scenery of env ``e`` (``megastep_tpu/scene.py:344-353``)."""
+    import matplotlib.pyplot as plt
+    from . import plotting
+    ax = plt.axes()
+    state = arrdict(scenery=scn.state(e))
+    plotting.plot_lines(ax, state, zoom=False)
+    plotting.plot_lights(ax, state)
+    plotting.adjust_view(ax, state, zoom=False)
+    return ax.figure

@@ -43,7 +43,7 @@ def test_import_pulls_in_no_jax():
                  'rebar.contextlib', 'rebar.paths', 'rebar.numpy', 'rebar.stats.categories',
                  'rebar.stats.writing', 'rebar.stats.device', 'rebar.stats.reading',
                  'rebar.widgets', 'rebar.logging', 'rebar.interrupting', 'rebar.storing',
-                 'parallel.checkpoint'):
+                 'parallel.checkpoint', 'plotting', 'rebar.recording', 'rebar.plots'):
         assert f'megastep_tpu_torch.{name}' in names.split(','), name
 
 
@@ -82,6 +82,55 @@ def test_run_directory_needs_no_pandas_or_ipython(tmp_path):
     channels, loaded = out.stdout.splitlines()[-2:]
     assert int(channels) >= 14
     assert loaded == ''
+
+
+_NO_PLOTTING_PROBE = """
+import importlib, sys
+for name in ('matplotlib', 'PIL', 'pandas', 'IPython'):
+    sys.modules[name] = None  # any import of them raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+for name in ('plotting', 'rebar.recording', 'rebar.plots', 'demo'):
+    importlib.import_module('megastep_tpu_torch.' + name)
+from megastep_tpu_torch import floorplans
+from megastep_tpu_torch.demo import demo
+from megastep_tpu_torch.envs import Explorer
+env = Explorer(2, geometries=floorplans.sample(2, seed=7), res=64, device='cpu')
+state, world = env.reset(torch.zeros((2, 1), dtype=torch.int32))
+snap = env.state(state, world, 1)
+assert isinstance(snap.seen, np.ndarray) and snap.seen.shape == (int(env.core.scenery.tex_width[1]),)
+assert isinstance(snap.core.scenery.lines, np.ndarray)
+try:
+    env.plot_state(snap)
+except ImportError as e:
+    print('error:', e)
+else:
+    raise AssertionError('plot_state drew without matplotlib')
+from megastep_tpu_torch.rebar import recording
+try:
+    recording.ParallelEncoder(env.plot_state, N=1, backend='process')
+except ImportError as e:
+    assert 'matplotlib' in str(e), e
+else:
+    raise AssertionError('an encoder without matplotlib')
+print('loaded:', ','.join(sorted(m for m in sys.modules if sys.modules[m] is not None and
+                      m.split('.')[0] in ('matplotlib', 'PIL', 'pandas', 'IPython'))))
+"""
+
+
+def test_snapshots_need_no_matplotlib_pillow_or_pandas(tmp_path):
+    """The card's machine may lack matplotlib and Pillow: with them, pandas and
+    IPython blocked, the plotting, recording, plots and demo modules import and
+    ``env.state`` snapshots an env on the CPU; ``plot_state`` and
+    ``ParallelEncoder`` raise an ImportError that names matplotlib."""
+    env = {**os.environ, 'PYTHONPATH': str(ROOT)}
+    out = subprocess.run([sys.executable, '-c', _NO_PLOTTING_PROBE], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    error, loaded = out.stdout.splitlines()[-2:]
+    assert error.startswith('error:') and 'matplotlib' in error, out.stdout
+    assert loaded == 'loaded: ', out.stdout
 
 
 _CUBICASA_PROBE = """
