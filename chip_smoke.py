@@ -45,7 +45,16 @@ drives the port's paths at full size:
   matplotlib and an encoder backend (Pillow, PyAV or ffmpeg), plotted in the
   port's process pool and encoded (else a recorder of the snapshots stands in
   for the encoder, and the ``demo`` line says what is missing); the kernel
-  launch of one demo step of each held against its plain version.
+  launch of one demo step of each held against its plain version;
+- the multi-device layer (``megastep_tpu_torch.parallel``): the flagship
+  config's sharded train step over a one-rank NCCL group, its first chunk
+  held against the single-device step from the same start; then two gloo
+  ranks spawned on the same card (NCCL refuses two ranks on one GPU), each
+  the flagship config on half of the 8,192 envs and then a scene-sharded
+  Deathmatch on half of 4,096 agent-envs, their parameters and metrics
+  bit-equal across the ranks after every chunk, the collectives of every
+  chunk the design's list, and each rank's observe launch against its plain
+  version.
 
 Any failed phase raises, and the script then exits non-zero without its last
 line. Run it from the repository root:
@@ -54,8 +63,8 @@ line. Run it from the repository root:
 
 It prints progress lines, one ``{"main_path": {...}}`` JSON line per env and
 set of plans, a ``{"train": {...}}`` line, a ``{"roofline": {...}}`` line, a
-``{"run_dir": {...}}`` line, a ``{"demo": {...}}`` line, a ``{"kernels":
-[...]}`` JSON line, the card's
+``{"run_dir": {...}}`` line, a ``{"demo": {...}}`` line, a ``{"parallel":
+{...}}`` line, a ``{"kernels": [...]}`` JSON line, the card's
 name and power limit as ``nvidia-smi`` gives them, and last ``{"ok": true,
 "device": {...}}``. Without a CUDA device it exits with code 2 and prints no
 result.
@@ -112,6 +121,12 @@ SIGINT_AFTER_S = .5        # the run-directory phase's SIGINT, after the first e
 DEMO_LENGTH, DEMO_D = 32, 1                  # frames; the env recorded
 DM_DEMO_ENVS, DM_DEMO_LENGTH, DM_DEMO_D = 4096, 16, 0
 DEMO_CHECK_STEP = 1        # the demo step whose observe launch is held against plain
+# The parallel phase: the flagship config through the sharded train step, over
+# a one-rank NCCL group, then over two gloo ranks that share the card (NCCL
+# refuses two ranks on one GPU); then Deathmatch at PAR_DM_ENVS agent-envs
+# over the two ranks.
+WORLD1_BACKEND, PAR_WORLD, PAR_CHUNKS = 'nccl', 2, 2   # PAR_CHUNKS timed, after a warm-up one
+PAR_DM_ENVS, PAR_DM_BUFFER, PAR_DM_BATCH = 4096, 8, 8192
 
 #: The Deathmatch modes of the kernel, as observe() arguments past the inputs.
 #: 'patch' and 'fast_div' read this frame's drawn lines, 'draw_model' the static
@@ -1547,6 +1562,291 @@ def demo_phase(torch, flagship_env, geoms):
     return line, entries
 
 
+def sharded_chunks(torch, m, step, carry, g, n, digest):
+    """``n`` chunks of a sharded ``step``, each timed on the host clock (ended
+    by a sync); each chunk's metrics, collectives by kind, parameter digest and
+    seconds. Returns the carry and the chunks."""
+    chunks = []
+    for _ in range(n):
+        m.counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, metrics = step(carry, g)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        chunks.append(dict(metrics=metrics, counts=dict(m.counts), digest=digest(),
+                           seconds=seconds))
+    return carry, chunks
+
+
+def check_chunks(chunks, what):
+    """Every chunk's metrics finite, a minibatch run, and the collectives the
+    sharded step's design needs, and no other."""
+    from megastep_tpu_torch.parallel.mesh import chunk_collectives
+    for c in chunks:
+        m = c['metrics']
+        if not all(math.isfinite(v) for v in m.values()) or m['minibatches'] < 1:
+            raise AssertionError(f'{what}: a chunk ran no minibatch or has a metric that '
+                                 f'is not finite: {m}')
+        want = dict(chunk_collectives(int(m['minibatches'])))
+        if c['counts'] != want:
+            raise AssertionError(f'{what}: collectives {c["counts"]}, not {want}')
+
+
+def rank_entry(torch, m, env, carry, mode, launches, barrier):
+    """One observe launch of this rank's env at its carry's poses against its
+    plain version, then its times, taken by one rank at a time (``barrier``
+    between them), and its bound. Returns the check and the kernel entry's
+    numbers."""
+    from megastep_tpu_torch.ops import fused, render
+    from megastep_tpu_torch.perf import roofline
+    scn = env.core.scenery
+    if mode == 'explorer':
+        args, kw = env.observe_args(carry.env_state.agents)
+        out, check = check_observe(torch, fused, render, args, kw)
+        bound_ms, bound_by, _ = roofline.bound(scn, out, scn.n_dynamic)
+    else:
+        modes, drawn = deathmatch_modes(env, carry.env_state.agents)
+        args, kw = modes[mode]
+        out, check = check_observe(torch, fused, render, args, kw, drawn)
+        bound_ms, bound_by, _ = roofline.bound(scn, out, 0, scn.n_dynamic_texels)
+    if check['differing']:
+        raise AssertionError(f'rank {m.rank}: {check["differing"]} rays of {mode} differ '
+                             'from the plain version')
+    for r in range(m.world):
+        if r == m.rank:
+            ms, plain_ms = time_observe(torch, fused, args, kw)
+        barrier()
+    return dict(launches=launches, check=check, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN restricted to its deterministic algorithms for the block: its
+    default weight-gradient algorithm sums with atomics, so two runs of one
+    chunk from the same start differ in the last bits, and AMSGrad's
+    normalised steps carry such a difference up to the learning rate."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def parallel_rank(rank, cfg, init_method, out_dir):
+    """One gloo rank of the parallel phase's world 2 on the one card: the
+    flagship config's sharded step on this rank's ``cfg['envs'] / 2`` envs,
+    then a scene-sharded Deathmatch; each with its observe launch against the
+    plain version. Writes its results to ``out_dir/rank<r>.json``."""
+    import importlib
+    import torch
+    import torch.distributed as dist
+    from megastep_tpu_torch import floorplans
+    from megastep_tpu_torch.models import Agent
+    from megastep_tpu_torch.ops import fused
+    from megastep_tpu_torch.parallel import host
+    from megastep_tpu_torch.rebar import processes
+    pmesh = importlib.import_module('megastep_tpu_torch.parallel.mesh')
+    train = importlib.import_module('megastep_tpu_torch.demo.train')
+
+    device, world = cfg['device'], cfg['world']
+    geoms = floorplans.sample(N_GEOMETRIES)
+    out = {}
+    with processes.processgroup('gloo', init_method, world, rank):
+        m = pmesh.mesh(device)
+        runs = (('explorer', lambda: host.sharded_explorer(
+                    cfg['envs'], m, tiled(geoms, cfg['envs']), res=cfg['res'],
+                    subsample=cfg['subsample']), cfg['buffer'], cfg['batch'], 1 + cfg['chunks']),
+                ('patch', lambda: host.sharded_deathmatch(
+                    cfg['dm_envs'], m, tiled(geoms, cfg['dm_envs'] // DM_AGENTS),
+                    n_agents=DM_AGENTS, res=cfg['dm_res'], subsample=cfg['subsample']),
+                 cfg['dm_buffer'], cfg['dm_batch'], 1))
+        for mode, make_env, buffer, batch, n in runs:
+            t0 = time.perf_counter()
+            env = make_env()
+            agent = Agent(env.obs_space, env.action_space, width=cfg['width'],
+                          generator=torch.Generator().manual_seed(0)).to(device)
+            g = torch.Generator(device).manual_seed(rank)
+            fused.observe.launches = 0
+            carry, step = pmesh.init_sharded(env, agent, train.optimizer(agent.parameters()),
+                                             g, m, buffer_size=buffer, batch_size=batch)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            carry, chunks = sharded_chunks(torch, m, step, carry, g, n,
+                                           lambda: pmesh.digest(agent.parameters()))
+            out[mode] = dict(rank_entry(torch, m, env, carry, mode, fused.observe.launches,
+                                        dist.barrier),
+                             n_envs=env.n_envs, build_s=build_s, chunks=chunks)
+            del env, agent, carry, step
+    (Path(out_dir) / f'rank{rank}.json').write_text(json.dumps(out))
+
+
+def parallel_phase(torch, flagship_env, tmp):
+    """The multi-device layer on the one card. World 1: the flagship env's
+    sharded train step over a one-rank NCCL group (a warm-up chunk and
+    PAR_CHUNKS timed ones), its first chunk held against the single-device
+    step from the same start (both with cuDNN's deterministic algorithms; the
+    single-device chunk is run once more without them, to show what they
+    remove), and one K1a launch against plain. World 2: two
+    gloo ranks spawned on the same card, each the flagship config on half the
+    envs, then a scene-sharded Deathmatch; their parameters after every chunk
+    and their metrics bit-equal, and each rank's K1a and K1b launch against
+    plain. Returns the ``parallel`` line and the kernel entries."""
+    import copy
+    import importlib
+    from megastep_tpu_torch.arrdict import arrdict
+    from megastep_tpu_torch.models import Agent
+    from megastep_tpu_torch.ops import fused
+    from megastep_tpu_torch.rebar import processes
+    pmesh = importlib.import_module('megastep_tpu_torch.parallel.mesh')
+    train = importlib.import_module('megastep_tpu_torch.demo.train')
+
+    t_phase = time.perf_counter()
+    env = flagship_env
+    kw = dict(buffer_size=TRAIN_BUFFER, batch_size=TRAIN_BATCH)
+    agent = Agent(env.obs_space, env.action_space, width=TRAIN_WIDTH,
+                  generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    opt = train.optimizer(agent.parameters())
+    g = torch.Generator(DEVICE).manual_seed(0)
+    digest = lambda: pmesh.digest(agent.parameters())  # noqa: E731
+    with processes.processgroup(WORLD1_BACKEND, f'file://{tmp}/world1', 1, 0):
+        m = pmesh.mesh(DEVICE)
+        fused.observe.launches = 0
+        # The single-device step draws its permutation from the rollout's
+        # generator: so does the sharded one here, to take the same minibatches.
+        carry, step = pmesh.init_sharded(env, agent, opt, g, m, perm_generator=g, **kw)
+        start = dict(agent=copy.deepcopy(agent),
+                     opt={k: [t.clone() for t in v] if isinstance(v, list) else v
+                          for k, v in opt.state_dict().items()},
+                     carry=arrdict({k: carry[k].map(torch.clone)
+                                    for k in ('env_state', 'world', 'agent_state')}),
+                     g=g.get_state())
+        with deterministic_cudnn(torch):
+            carry, chunks = sharded_chunks(torch, m, step, carry, g, 1, digest)
+        first = [p.detach().clone() for p in agent.parameters()]
+        carry, timed_chunks = sharded_chunks(torch, m, step, carry, g, PAR_CHUNKS, digest)
+        chunks += timed_chunks
+        launches = fused.observe.launches
+    check_chunks(chunks, 'world 1')
+    if launches != 1 + TRAIN_BUFFER * (1 + PAR_CHUNKS):
+        raise AssertionError(f'world 1: {launches} observe launches')
+    rate1 = TRAIN_ENVS * TRAIN_BUFFER * PAR_CHUNKS / sum(c['seconds'] for c in timed_chunks)
+
+    def single_device():
+        """One chunk of the single-device step from the sharded run's start:
+        the parameters after it, its metrics, and its seconds (host clock,
+        ended by a sync)."""
+        agent0 = copy.deepcopy(start['agent'])
+        opt0 = train.optimizer(agent0.parameters())
+        opt0.load_state_dict(start['opt'])
+        g0 = torch.Generator(DEVICE)
+        g0.set_state(start['g'])
+        carry0 = arrdict(agent=agent0, opt=opt0,
+                         **{k: v.map(torch.clone) for k, v in start['carry'].items()})
+        step0 = train.make_train_step(env, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step0(carry0, g0)
+        torch.cuda.synchronize()
+        return [p.detach() for p in agent0.parameters()], metrics, time.perf_counter() - t0
+
+    def max_diff(ps, qs):
+        return max(float((p - q).abs().max()) for p, q in zip(ps, qs))
+
+    with deterministic_cudnn(torch):
+        params0, plain, _ = single_device()
+    world1_err = max_diff(params0, first)
+    if not all(torch.allclose(p, q, **TOL) for p, q in zip(params0, first)):
+        raise AssertionError(f'world 1 differs from the single-device step by up to '
+                             f'{world1_err} in the parameters after one chunk')
+    metrics_err = max(abs(plain[k] - chunks[0]['metrics'][k]) for k in plain)
+    # Again without deterministic cuDNN: what it removes, and a single-device
+    # chunk timed in this process beside the sharded ones.
+    params1, _, single_s = single_device()
+    nondeterministic_err = max_diff(params1, params0)
+    w1 = rank_entry(torch, m, env, carry, 'explorer', launches, lambda: None)
+    log(f'parallel world 1 ({WORLD1_BACKEND}): {TRAIN_ENVS} envs, {rate1:.0f} env-steps/s over '
+        f'{PAR_CHUNKS} chunks after a warm-up one (a single-device chunk in this process: '
+        f'{1e3 * single_s:.1f} ms); collectives a chunk {chunks[-1]["counts"]}; '
+        f'against the single-device step after one chunk: parameters within {world1_err} '
+        f'(rtol {TOL["rtol"]}, atol {TOL["atol"]}), metrics within {metrics_err}; the '
+        f'single-device chunk again without deterministic cuDNN: parameters within '
+        f'{nondeterministic_err}; observe launches {launches}, check {w1["check"]}')
+    del agent, opt, carry, step, start, first, params0, params1
+
+    # World 2: gloo, because NCCL refuses two ranks on one GPU.
+    cfg = dict(device=DEVICE, world=PAR_WORLD, envs=TRAIN_ENVS, res=RES, subsample=SUBSAMPLE,
+               width=TRAIN_WIDTH, buffer=TRAIN_BUFFER, batch=TRAIN_BATCH, chunks=PAR_CHUNKS,
+               dm_envs=PAR_DM_ENVS, dm_res=DM_RES, dm_buffer=PAR_DM_BUFFER,
+               dm_batch=PAR_DM_BATCH)
+    out_dir = Path(tmp) / 'parallel'
+    out_dir.mkdir()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(parallel_rank, args=(cfg, f'file://{tmp}/world2', str(out_dir)),
+                                nprocs=PAR_WORLD)
+    spawn_s = time.perf_counter() - t0
+    log(f'parallel world 2: {PAR_WORLD} gloo ranks on one card, gloo all_reduce and broadcast '
+        f'on {DEVICE} tensors (torch {torch.__version__}), {spawn_s:.1f} s')
+    ranks = [json.loads((out_dir / f'rank{r}.json').read_text()) for r in range(PAR_WORLD)]
+    entries = [kernel_entry('explorer', launches, w1['check']['max_abs_err'], w1['ms'],
+                            w1['plain_ms'], w1['bound_ms'], w1['bound_by'])]
+    entries[0]['name'] = f'observe (explorer, parallel world 1, {WORLD1_BACKEND})'
+    line = {'world1': {'backend': WORLD1_BACKEND, 'n_envs': TRAIN_ENVS, 'chunks': PAR_CHUNKS,
+                       'env_steps_per_s': rate1,
+                       'chunk_s': [c['seconds'] for c in chunks],
+                       'single_device_chunk_s': single_s,
+                       'collectives': chunks[-1]['counts'], 'observe_launches': launches,
+                       'vs_single_device_params_max_abs': world1_err,
+                       'vs_single_device_metrics_max_abs': metrics_err,
+                       'single_device_rerun_nondeterministic_params_max_abs':
+                           nondeterministic_err,
+                       'metrics': chunks[-1]['metrics']},
+            'world2': {'backend': 'gloo', 'ranks': PAR_WORLD, 'one_card': True,
+                       'tensors_on': DEVICE, 'torch': torch.__version__,
+                       'spawn_s': spawn_s}}
+    for mode, what, n_total, unit, buffer in (
+            ('explorer', 'explorer', TRAIN_ENVS, 'env', TRAIN_BUFFER),
+            ('patch', 'deathmatch', PAR_DM_ENVS, 'agent', PAR_DM_BUFFER)):
+        runs = [r[mode] for r in ranks]
+        for r, run in enumerate(runs):
+            check_chunks(run['chunks'], f'world 2 {what}, rank {r}')
+            if run['n_envs'] != n_total // PAR_WORLD:
+                raise AssertionError(f'world 2 {what}: rank {r} holds {run["n_envs"]} envs')
+        for i, cs in enumerate(zip(*(run['chunks'] for run in runs))):
+            if len({c['digest'] for c in cs}) != 1 or len({json.dumps(c['metrics'])
+                                                            for c in cs}) != 1:
+                raise AssertionError(f'world 2 {what}: the ranks differ after chunk {i}')
+        # Explorer's first chunk is its warm-up; Deathmatch's one chunk is
+        # timed with its warm-up.
+        timed = [run['chunks'][1:] or run['chunks'] for run in runs]
+        rate = n_total * buffer * len(timed[0]) / max(sum(c['seconds'] for c in t)
+                                                     for t in timed)
+        last = timed[0][-1]
+        line['world2'][what] = {
+            'n_envs': n_total, f'{unit}_steps_per_s': rate,
+            'build_s': [run['build_s'] for run in runs],
+            'chunk_s': [[c['seconds'] for c in run['chunks']] for run in runs],
+            'collectives': last['counts'], 'digests_equal': True,
+            'observe_launches': [run['launches'] for run in runs],
+            'metrics': last['metrics']}
+        log(f'parallel world 2 (gloo, {PAR_WORLD} ranks on one card) {what}: {n_total} '
+            f'{"agent-" if unit == "agent" else ""}envs, {rate:.0f} {unit}-steps/s (one card '
+            f'shared, not a scaling figure); '
+            f'parameters and metrics bit-equal across the ranks after every chunk; '
+            f'collectives a chunk {last["counts"]}; observe launches '
+            f'{[run["launches"] for run in runs]}; checks {[run["check"] for run in runs]}')
+        for r, run in enumerate(runs):
+            entry = kernel_entry(mode, run['launches'], run['check']['max_abs_err'], run['ms'],
+                                 run['plain_ms'], run['bound_ms'], run['bound_by'])
+            entry['name'] = f'observe ({mode}, parallel world 2, gloo, rank {r})'
+            entries.append(entry)
+    line['phase_s'] = time.perf_counter() - t_phase
+    log(f'parallel phase: {line["phase_s"]:.1f} s')
+    return line, entries
+
+
 def roofline_phase(torch, kernels, card):
     """K2 against its plain version on the JAX probe's input and on ragged
     sizes, bit for bit; its SASS; its times; then the three peak probes.
@@ -1694,6 +1994,10 @@ def smoke(torch, opts, tmp):
 
     # 9. demo(): the stored flagship agent recorded on its env, then Deathmatch.
     demo_line, demo_kernels = demo_phase(torch, flagship_env, geoms)
+
+    # 10. The multi-device layer: the sharded train step at world 1 (NCCL) and
+    # world 2 (gloo, one card).
+    parallel_line, parallel_kernels = parallel_phase(torch, flagship_env, tmp)
     del flagship_env
 
     # After every throughput reading, so that the profiler's tracing cannot
@@ -1710,9 +2014,10 @@ def smoke(torch, opts, tmp):
     log(json.dumps({'roofline': roofline_line}))
     log(json.dumps({'run_dir': run_dir_line}))
     log(json.dumps({'demo': demo_line}))
+    log(json.dumps({'parallel': parallel_line}))
     log(json.dumps({'kernels': [explorer_kernel, *deathmatch_kernels, vpu_kernel,
                                 real_explorer_kernel, real_deathmatch_kernel,
-                                *demo_kernels]}))
+                                *demo_kernels, *parallel_kernels]}))
     log(nvidia_smi())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

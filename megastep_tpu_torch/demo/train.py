@@ -14,6 +14,13 @@ The JAX package jits both into one device program; here they run eagerly, and
 the environment's own kernels (the observe kernel, on the card) run inside the
 rollout. The agent (the parameters) and the optimizer (its moments) are part of
 the carry, where the JAX carry holds ``params`` and ``opt_state``.
+
+With a mesh (:mod:`megastep_tpu_torch.parallel.mesh`) the env is this rank's
+slice, and the step trains the JAX package's sharded update
+(``make_train_step(shard_mesh=...)``): shard-local minibatches, each a block of
+every rank's own envs, and the advantage statistics, the gradients, the loss
+terms (and with them the KL stop) and the rollout statistics taken over all
+ranks. Without one, the path is the single-device one.
 """
 import logging
 import math
@@ -62,22 +69,30 @@ def rollout(env, agent, env_state, world, agent_state, generator, T):
     return env_state, world, agent_state, arrdict(world=stack(worlds), decision=stack(decisions))
 
 
-def as_chunk(chunk):
+def as_chunk(chunk, mesh=None):
     """Scalar rollout statistics, as 0-d tensors (reference ``as_chunk``,
-    ``demo/__init__.py:37-52``)."""
+    ``demo/__init__.py:37-52``); with a mesh, over every rank's chunk (one
+    all-reduce)."""
     w = chunk.world
     n = w.reset.numel()
-    trajs = w.reset.sum().float()
+    trajs, reward = w.reset.sum().float(), w.reward.sum()
+    if mesh is not None:
+        n *= mesh.world
+        trajs, reward = mesh.all_reduce(torch.stack([trajs, reward])).unbind()
     return dict(samples=torch.full((), n, dtype=torch.float32, device=trajs.device),
                 trajs=trajs,
-                step_reward=div(w.reward.sum(), n),
-                traj_reward=w.reward.sum() / trajs.clamp(min=1))
+                step_reward=div(reward, n),
+                traj_reward=reward / trajs.clamp(min=1))
 
 
-def ppo_loss(agent, batch, state0, entropy=1e-2, gamma=.99, clip=.2):
+def ppo_loss(agent, batch, state0, entropy=1e-2, gamma=.99, clip=.2, mesh=None):
     """PPO-clip policy loss + clipped V-trace value loss + entropy bonus
     (reference ``optimize``, ``demo/__init__.py:54-107``). Returns
-    ``(loss, aux)``.
+    ``(loss, aux)``. With a mesh, the advantages are normalised by their mean
+    and standard deviation over every rank's minibatch block
+    (:meth:`~megastep_tpu_torch.parallel.mesh.Mesh.moments`), as the JAX
+    package's sharded step normalises over the global minibatch; the loss and
+    the other terms stay this rank's.
 
     ``torch.minimum``/``torch.maximum`` split a tie's gradient in half between
     their arguments, as JAX's do; on the first minibatch ``ratio`` is 1 and the
@@ -96,8 +111,11 @@ def ppo_loss(agent, batch, state0, entropy=1e-2, gamma=.99, clip=.2):
     v_loss = .5 * torch.maximum((d.value - v_target)**2, (v_clipped - v_target)**2).mean()
 
     adv = learning.generalized_advantages(d.value, w.reward, d.value, w.reset, gamma=gamma)
-    adv_std = adv.std(correction=0)
-    normed_adv = (adv - adv.mean()) / (1e-3 + adv_std)
+    if mesh is None:
+        adv_mean, adv_std = adv.mean(), adv.std(correction=0)
+    else:
+        adv_mean, adv_std = mesh.moments(adv)
+    normed_adv = (adv - adv_mean) / (1e-3 + adv_std)
     free_adv = ratio * normed_adv
     clip_adv = ratio.clamp(1 - clip, 1 + clip) * normed_adv
     p_loss = -torch.minimum(free_adv, clip_adv).mean()
@@ -185,22 +203,47 @@ def optimizer(params, lr=3e-4, max_grad_norm=100.):
     return ClippedAMSGrad(params, lr, max_grad_norm)
 
 
-def optimize(agent, opt, batch, state0, **hp):
+def optimize(agent, opt, batch, state0, mesh=None, **hp):
     """One gradient step on one minibatch. Returns the loss terms as detached
     0-d tensors. The forward and the backward both run in full f32
-    (:func:`~megastep_tpu_torch.models.agent.f32_math`)."""
+    (:func:`~megastep_tpu_torch.models.agent.f32_math`).
+
+    With a mesh, the gradients are averaged over the ranks (one all-reduce of
+    a flat buffer, then a division by the world) before the optimizer clips
+    them by their global norm, and the loss terms are averaged over the ranks
+    (one all-reduce). Every rank contributes an equal block, so these are the
+    gradient and the terms of the global minibatch's loss."""
     with f32_math(agent.device):
-        loss, aux = ppo_loss(agent, batch, state0, **hp)
+        loss, aux = ppo_loss(agent, batch, state0, mesh=mesh, **hp)
         opt.zero_grad()
         loss.backward()
+    if mesh is not None:
+        _average_gradients(opt.params, mesh)
     opt.step()
     aux['loss'] = loss
-    return {k: v.detach() for k, v in aux.items()}
+    aux = {k: v.detach() for k, v in aux.items()}
+    if mesh is not None:
+        # adv_std is global already.
+        keys = [k for k in aux if k != 'adv_std']
+        aux.update(zip(keys, mesh.mean(torch.stack([aux[k] for k in keys])).unbind()))
+    return aux
 
 
-def learn(agent, opt, chunk, state0, batches, kl_limit=.02, **hp):
+@torch.no_grad()
+def _average_gradients(params, mesh):
+    """Every parameter's gradient, averaged over the ranks as one flat buffer;
+    a parameter with no gradient contributes a zero one."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = mesh.mean(torch.cat([g.reshape(-1) for g in grads]))
+    for p, g in zip(params, flat.split([g.numel() for g in grads])):
+        p.grad = g.view_as(p)
+
+
+def learn(agent, opt, chunk, state0, batches, kl_limit=.02, mesh=None, **hp):
     """Minibatched PPO over a rollout chunk with the KL early stop
-    (``train.py:202-245``).
+    (``train.py:202-245``). With a mesh, ``chunk`` and ``batches`` are this
+    rank's, and the stop reads the global ``kl_div``, so every rank stops after
+    the same minibatch.
 
     :param state0: the agent state at the chunk's start, batch-first.
     :param batches: (n_batches, batch_width) env indices, one row a minibatch.
@@ -213,7 +256,7 @@ def learn(agent, opt, chunk, state0, batches, kl_limit=.02, **hp):
     for idx in batches:
         batch = chunk.map(lambda x: x[:, idx])
         s0 = state0.map(lambda x: x[idx])
-        rows.append(optimize(agent, opt, batch, s0, **hp))
+        rows.append(optimize(agent, opt, batch, s0, mesh=mesh, **hp))
         if bool(rows[-1]['kl_div'] > kl_limit):
             tripped = True
             break
@@ -224,9 +267,28 @@ def learn(agent, opt, chunk, state0, batches, kl_limit=.02, **hp):
     return metrics
 
 
-def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, **hp):
+def minibatches(perm, n_batches, width):
+    """The learner's minibatches, one row of ``width`` env indices each: the
+    first ``n_batches * width`` entries of the permutation ``perm``, in blocks.
+    With a mesh, ``perm`` permutes a rank's own envs and ``width`` is its share
+    of a minibatch: row ``b`` is this rank's block of the global minibatch
+    ``b``, as in ``megastep_tpu/demo/train.py:170-187``."""
+    return perm[:n_batches * width].reshape(n_batches, width)
+
+
+def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, mesh=None,
+                    perm_generator=None, **hp):
     """Builds the one-chunk training step: rollout → minibatched PPO with the KL
     early stop (reference outer loop, ``demo/__init__.py:124-145``).
+
+    :param mesh: a :class:`~megastep_tpu_torch.parallel.mesh.Mesh`; ``env`` is
+        then this rank's slice, ``batch_size`` stays global, and each
+        minibatch takes an equal block of every rank's envs (see
+        :func:`minibatches`). The minibatch width must be a multiple of the
+        world, as in the JAX package.
+    :param perm_generator: with a mesh, the generator of the permutation of a
+        rank's envs, the same on every rank (``None``: one seeded with 0 on the
+        env's device); the rollout's generator is each rank's own.
 
     :return: ``step(carry, generator, mark=None) -> (carry, metrics)``, with
         carry the arrdict of :func:`init_carry` and metrics a dict of floats
@@ -235,7 +297,8 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, **h
         before the rollout, between the rollout and the learner, and after the
         learner (e.g. to record CUDA events).
     """
-    n_envs = env.n_envs
+    n_local = env.n_envs
+    n_envs = n_local * (1 if mesh is None else mesh.world)
     batch_width = max(batch_size // buffer_size, 1)
     n_batches = n_envs // batch_width
     if n_batches < 1:
@@ -244,6 +307,16 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, **h
             f'minibatch exceeds n_envs = {n_envs}: the learner would run '
             f'ZERO minibatches (and silently never train). Lower batch_size '
             f'or raise n_envs.')
+    width = batch_width
+    if mesh is not None:
+        width = batch_width // mesh.world
+        if width < 1 or batch_width % mesh.world:
+            raise ValueError(
+                f'minibatch width {batch_width} must be a multiple of the '
+                f"mesh's {mesh.world} ranks so every rank contributes an "
+                f'equal local block')
+        if perm_generator is None:
+            perm_generator = torch.Generator(env.device).manual_seed(0)
 
     def step(carry, generator, mark=None):
         mark = mark or (lambda: None)
@@ -253,10 +326,11 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, **h
             env, agent, carry.env_state, carry.world, carry.agent_state, generator,
             buffer_size)
         mark()
-        perm = torch.randperm(n_envs, generator=generator, device=generator.device)
-        batches = perm[:n_batches * batch_width].reshape(n_batches, batch_width)
-        metrics = learn(agent, opt, chunk, carry.agent_state, batches, kl_limit, **hp)
-        metrics.update(as_chunk(chunk))
+        g = generator if mesh is None else perm_generator
+        perm = torch.randperm(n_local, generator=g, device=g.device)
+        metrics = learn(agent, opt, chunk, carry.agent_state,
+                        minibatches(perm, n_batches, width), kl_limit, mesh=mesh, **hp)
+        metrics.update(as_chunk(chunk, mesh))
         mark()
         keys = list(metrics)
         values = torch.stack([metrics[k].to(agent.device) for k in keys]).tolist()

@@ -61,6 +61,11 @@ class Deathmatch:
         package, where only its kernel benchmark turns it on.
     :param random: numpy ``RandomState`` for the textures, lights and spawn
         tables, consumed in the JAX package's order.
+    :param pad_to: ``(Lmax, Kmax, Tmax)`` from :func:`scene.padded_sizes` over a
+        larger geometry list, so that the per-rank builds of
+        :mod:`megastep_tpu_torch.parallel.host` agree on shapes.
+    :param sort_scenes: order the scenes by texel count; ``False`` keeps the
+        caller's order.
     :param device: where the env runs; ``'cuda'`` unless the caller says so.
     :param kwargs: ``res`` (default 512), ``fov`` (default 70) and the rest of
         :class:`~megastep_tpu_torch.core.Core`'s fields.
@@ -70,15 +75,17 @@ class Deathmatch:
     """
 
     def __init__(self, n_envs, n_agents=4, geometries=None, subsample=4,
-                 draw_fused=False, fast_div=False, random=None, device='cuda',
-                 **kwargs):
+                 draw_fused=False, fast_div=False, random=None, pad_to=None,
+                 sort_scenes=True, device='cuda', **kwargs):
         device = scene.resolve_device(device)
         n_scenes = max(n_envs // n_agents, 1)
         if geometries is None:
             geometries = cubicasa.sample(n_scenes)
-        self.scene_order = scene.striped_order(geometries, n_agents)
+        self.scene_order = (scene.striped_order(geometries, n_agents) if sort_scenes
+                            else np.arange(len(geometries)))
         geometries = [geometries[i] for i in self.scene_order]
-        scenery = scene.scenery(geometries, n_agents, random=random, device=device)
+        scenery = scene.scenery(geometries, n_agents, random=random, pad_to=pad_to,
+                                device=device)
         self.core = core.Core(scenery, res=kwargs.pop('res', 4 * 128),
                               fov=kwargs.pop('fov', 70), **kwargs)
         self._rgb = modules.RGB(self.core, n_agents=1, subsample=subsample)

@@ -36,6 +36,12 @@ class Explorer:
     :param subsample: rays pooled into one observed pixel.
     :param random: numpy ``RandomState`` for the textures, lights and spawn
         tables, consumed in the JAX package's order.
+    :param pad_to: ``(Lmax, Kmax, Tmax)`` from :func:`scene.padded_sizes` over a
+        larger geometry list, so that the per-rank builds of
+        :mod:`megastep_tpu_torch.parallel.host` agree on shapes; the seen mask
+        then spans the padded texel width.
+    :param sort_scenes: order the scenes by texel count; ``False`` keeps the
+        caller's order.
     :param device: where the env runs; ``'cuda'`` unless the caller says so.
     :param kwargs: ``res`` (default 256), ``fov`` (default 130) and the rest of
         :class:`~megastep_tpu_torch.core.Core`'s fields.
@@ -44,14 +50,15 @@ class Explorer:
     package orders them; env ``i`` uses ``geometries[scene_order[i]]``.
     """
 
-    def __init__(self, n_envs, geometries=None, subsample=4, random=None,
-                 device='cuda', **kwargs):
+    def __init__(self, n_envs, geometries=None, subsample=4, random=None, pad_to=None,
+                 sort_scenes=True, device='cuda', **kwargs):
         device = scene.resolve_device(device)
         if geometries is None:
             geometries = cubicasa.sample(n_envs)
-        self.scene_order = scene.striped_order(geometries, 1)
+        self.scene_order = (scene.striped_order(geometries, 1) if sort_scenes
+                            else np.arange(len(geometries)))
         geometries = [geometries[i] for i in self.scene_order]
-        scenery = scene.scenery(geometries, 1, random=random, device=device)
+        scenery = scene.scenery(geometries, 1, random=random, pad_to=pad_to, device=device)
         self.core = core.Core(scenery, res=kwargs.pop('res', 4 * 64),
                               fov=kwargs.pop('fov', 130), **kwargs)
         self._rgb = modules.RGB(self.core, n_agents=1, subsample=subsample)

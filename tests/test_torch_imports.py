@@ -43,7 +43,9 @@ def test_import_pulls_in_no_jax():
                  'rebar.contextlib', 'rebar.paths', 'rebar.numpy', 'rebar.stats.categories',
                  'rebar.stats.writing', 'rebar.stats.device', 'rebar.stats.reading',
                  'rebar.widgets', 'rebar.logging', 'rebar.interrupting', 'rebar.storing',
-                 'parallel.checkpoint', 'plotting', 'rebar.recording', 'rebar.plots'):
+                 'parallel.checkpoint', 'plotting', 'rebar.recording', 'rebar.plots',
+                 'parallel.mesh', 'parallel.host', 'parallel.scaling', 'rebar.processes',
+                 'rebar.queuing'):
         assert f'megastep_tpu_torch.{name}' in names.split(','), name
 
 
