@@ -28,11 +28,11 @@ from .dotdict import dotdict
 __all__ = ['constants', 'spaces', 'geometry', 'toys', 'dotdict', 'arrdict',
            'core', 'scene', 'modules', 'ops', 'envs', 'floorplans', 'cubicasa',
            'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models', 'demo',
-           'rebar', 'parallel']
+           'rebar', 'parallel', 'tracing']
 
 _LAZY = {'arrdict', 'core', 'scene', 'modules', 'ops', 'envs', 'floorplans',
          'cubicasa', 'polygons', 'ragged', 'interop', 'kernels', 'perf', 'models',
-         'demo', 'rebar', 'parallel'}
+         'demo', 'rebar', 'parallel', 'tracing'}
 
 
 def __getattr__(name):

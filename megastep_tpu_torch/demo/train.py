@@ -28,6 +28,7 @@ import time
 
 import torch
 
+from .. import tracing
 from ..arrdict import arrdict, numpyify, stack
 from ..models import Agent
 from ..models.agent import f32_math
@@ -60,9 +61,10 @@ def rollout(env, agent, env_state, world, agent_state, generator, T):
     """
     worlds, decisions = [], []
     for _ in range(T):
-        decision, agent_state = agent(_expand_t(world), agent_state, generator=generator,
-                                      sample=True, value=True)
-        decision = _squeeze_t(decision)
+        with tracing.span('rollout.agent'):
+            decision, agent_state = agent(_expand_t(world), agent_state, generator=generator,
+                                          sample=True, value=True)
+            decision = _squeeze_t(decision)
         worlds.append(world)
         decisions.append(decision)
         env_state, world = env.step(env_state, decision, generator)
@@ -214,12 +216,15 @@ def optimize(agent, opt, batch, state0, mesh=None, **hp):
     (one all-reduce). Every rank contributes an equal block, so these are the
     gradient and the terms of the global minibatch's loss."""
     with f32_math(agent.device):
-        loss, aux = ppo_loss(agent, batch, state0, mesh=mesh, **hp)
+        with tracing.span('learn.forward'):
+            loss, aux = ppo_loss(agent, batch, state0, mesh=mesh, **hp)
         opt.zero_grad()
-        loss.backward()
+        with tracing.span('learn.backward'):
+            loss.backward()
     if mesh is not None:
         _average_gradients(opt.params, mesh)
-    opt.step()
+    with tracing.span('learn.optimizer'):
+        opt.step()
     aux['loss'] = loss
     aux = {k: v.detach() for k, v in aux.items()}
     if mesh is not None:
@@ -257,7 +262,10 @@ def learn(agent, opt, chunk, state0, batches, kl_limit=.02, mesh=None, **hp):
         batch = chunk.map(lambda x: x[:, idx])
         s0 = state0.map(lambda x: x[idx])
         rows.append(optimize(agent, opt, batch, s0, mesh=mesh, **hp))
-        if bool(rows[-1]['kl_div'] > kl_limit):
+        with tracing.span('learn.kl_read'):
+            tracing.count('host_syncs')
+            stop = bool(rows[-1]['kl_div'] > kl_limit)
+        if stop:
             tripped = True
             break
     n = len(batches)
@@ -320,22 +328,28 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, mes
 
     def step(carry, generator, mark=None):
         mark = mark or (lambda: None)
-        agent, opt = carry.agent, carry.opt
-        mark()
-        env_state, world, agent_state, chunk = rollout(
-            env, agent, carry.env_state, carry.world, carry.agent_state, generator,
-            buffer_size)
-        mark()
-        g = generator if mesh is None else perm_generator
-        perm = torch.randperm(n_local, generator=g, device=g.device)
-        metrics = learn(agent, opt, chunk, carry.agent_state,
-                        minibatches(perm, n_batches, width), kl_limit, mesh=mesh, **hp)
-        metrics.update(as_chunk(chunk, mesh))
-        mark()
-        keys = list(metrics)
-        values = torch.stack([metrics[k].to(agent.device) for k in keys]).tolist()
-        new_carry = arrdict(agent=agent, opt=opt, env_state=env_state, world=world,
-                            agent_state=agent_state)
+        with tracing.span('train.chunk'):
+            agent, opt = carry.agent, carry.opt
+            mark()
+            with tracing.span('train.rollout'):
+                env_state, world, agent_state, chunk = rollout(
+                    env, agent, carry.env_state, carry.world, carry.agent_state, generator,
+                    buffer_size)
+            mark()
+            with tracing.span('train.learn'):
+                g = generator if mesh is None else perm_generator
+                perm = torch.randperm(n_local, generator=g, device=g.device)
+                metrics = learn(agent, opt, chunk, carry.agent_state,
+                                minibatches(perm, n_batches, width), kl_limit, mesh=mesh,
+                                **hp)
+                metrics.update(as_chunk(chunk, mesh))
+            mark()
+            keys = list(metrics)
+            with tracing.span('train.metrics_read'):
+                tracing.count('host_syncs')
+                values = torch.stack([metrics[k].to(agent.device) for k in keys]).tolist()
+            new_carry = arrdict(agent=agent, opt=opt, env_state=env_state, world=world,
+                                agent_state=agent_state)
         return new_carry, dict(zip(keys, values))
 
     return step
@@ -371,7 +385,8 @@ def train(env=None, n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024, width
         to load into the agent before training.
     :param profile: the chunk index at which to trace one chunk with
         ``torch.profiler`` into the run's ``profile`` directory (a Chrome
-        trace); None disables.
+        trace whose user annotations are the program's spans, such as
+        ``train.learn`` and ``learn.backward``); None disables.
     :param full_checkpoint: a directory of full-carry checkpoints
         (:mod:`megastep_tpu_torch.parallel.checkpoint`). If it holds one,
         training resumes from it: parameters, optimizer state, env state,
@@ -446,16 +461,28 @@ def train(env=None, n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024, width
 def _profiled(step, carry, generator, run_name):
     """One chunk under ``torch.profiler`` (CPU activity, and CUDA's on the
     card), the device synced before the trace closes; the Chrome trace goes
-    to the run's ``profile`` directory."""
+    to the run's ``profile`` directory. The program's spans
+    (:mod:`megastep_tpu_torch.tracing`) are on for the chunk, so the trace
+    carries the layer names (``train.rollout``, ``rollout.agent``,
+    ``env.step``, ``learn.backward``, ...) as user annotations around the
+    operations each launched. Spans recorded only for this chunk are dropped
+    after it."""
     from ..rebar import paths
     activities = [torch.profiler.ProfilerActivity.CPU]
     cuda = generator.device.type == 'cuda'
     if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        carry, metrics = step(carry, generator)
-        if cuda:
-            torch.cuda.synchronize()
+    was_on = tracing.enabled()
+    tracing.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            carry, metrics = step(carry, generator)
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        if not was_on:
+            tracing.disable()
+            tracing.drain()
     trace = paths.path(run_name, 'profile').with_suffix('.json')
     prof.export_chrome_trace(str(trace))
     log.info('profile trace of a chunk in %s', trace)

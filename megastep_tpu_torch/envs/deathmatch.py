@@ -17,7 +17,7 @@ plain torch version.
 import numpy as np
 import torch
 
-from .. import core, cubicasa, modules, scene, spaces
+from .. import core, cubicasa, modules, scene, spaces, tracing
 from ..arrdict import arrdict, numpyify, torchify
 from ..dotdict import dotdict, mapping
 from ..ops import bake, fused, render
@@ -168,9 +168,10 @@ class Deathmatch:
         scn = self.core.scenery
         c = self.core
         nd = scn.n_dynamic
-        dyn_lines = render.draw_dynamic(scn, agents)
-        dyn = bake.dynamic_texel_intensity_parts(scn, dyn_lines, scn.lines[:, nd:],
-                                                 k_max=self._k_lights)
+        with tracing.span('env.rebake'):
+            dyn_lines = render.draw_dynamic(scn, agents)
+            dyn = bake.dynamic_texel_intensity_parts(scn, dyn_lines, scn.lines[:, nd:],
+                                                     k_max=self._k_lights)
         if self.draw_fused:
             lines, draw_model = scn.lines, scn.n_model_lines
         else:
@@ -224,15 +225,16 @@ class Deathmatch:
             choices themselves, (n_scenes, n_agents) int — used by the agents
             that respawn.
         """
-        reset = state.health <= 0
-        agents, health, damage = self._respawn(
-            state.agents, state.health, state.damage, reset, rng)
-        agents, progress = self._movement(
-            agents, collapse(decision, self.core.n_agents))
-        obs, health, damage, matchings, reward = self._observe(agents, health, damage)
-        state = arrdict(agents=agents, progress=progress,
-                        health=health, damage=damage, matchings=matchings)
-        return state, arrdict(obs=expand(obs), reward=reward, reset=reset.reshape(-1))
+        with tracing.span('env.step'):
+            reset = state.health <= 0
+            agents, health, damage = self._respawn(
+                state.agents, state.health, state.damage, reset, rng)
+            agents, progress = self._movement(
+                agents, collapse(decision, self.core.n_agents))
+            obs, health, damage, matchings, reward = self._observe(agents, health, damage)
+            state = arrdict(agents=agents, progress=progress,
+                            health=health, damage=damage, matchings=matchings)
+            return state, arrdict(obs=expand(obs), reward=reward, reset=reset.reshape(-1))
 
     def state(self, state, world, e=0):
         """Numpy snapshot of scene ``e`` for plotting, on the host

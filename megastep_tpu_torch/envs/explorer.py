@@ -17,7 +17,7 @@ are dropped.
 import numpy as np
 import torch
 
-from .. import core, cubicasa, modules, scene
+from .. import core, cubicasa, modules, scene, tracing
 from ..arrdict import arrdict, numpyify
 from ..dotdict import dotdict
 from ..ops import fused, render
@@ -150,21 +150,22 @@ class Explorer:
         :param rng: a ``torch.Generator`` on the env's device, or the spawn-slot
             choices themselves, (n_envs, 1) int — used by the envs that reset.
         """
-        agents, progress = self._mover(state.agents, decision)
+        with tracing.span('env.step'):
+            agents, progress = self._mover(state.agents, decision)
 
-        lengths = state.lengths + 1
-        reset = lengths >= state.potential + 200
+            lengths = state.lengths + 1
+            reset = lengths >= state.potential + 200
 
-        # Respawn reset envs and clear their exploration bookkeeping.
-        agents = self._respawner(agents, reset[:, None], rng)
-        seen = torch.where(reset[:, None], False, state.seen)
-        lengths = torch.where(reset, 0, lengths)
+            # Respawn reset envs and clear their exploration bookkeeping.
+            agents = self._respawner(agents, reset[:, None], rng)
+            seen = torch.where(reset[:, None], False, state.seen)
+            lengths = torch.where(reset, 0, lengths)
 
-        obs, seen, potential, reward = self._observe(agents, seen, reset)
-        state = arrdict(
-            agents=agents, progress=progress, seen=seen,
-            potential=potential, lengths=lengths)
-        return state, arrdict(obs=obs, reward=reward, reset=reset)
+            obs, seen, potential, reward = self._observe(agents, seen, reset)
+            state = arrdict(
+                agents=agents, progress=progress, seen=seen,
+                potential=potential, lengths=lengths)
+            return state, arrdict(obs=obs, reward=reward, reset=reset)
 
     def state(self, state, world, e=0):
         """Numpy snapshot of env ``e`` for plotting, on the host

@@ -15,6 +15,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from . import tracing
+
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD = Path(__file__).resolve().parent.parent / 'build' / 'megastep_tpu_torch'
 
@@ -60,8 +62,9 @@ def build(name):
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    proc = subprocess.run([nvcc(), *FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with tracing.span('kernels.build'):
+        proc = subprocess.run([nvcc(), *FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode:
         raise RuntimeError(f'nvcc failed on csrc/{name}.cu:\n{proc.stdout}')
     os.replace(tmp, out)

@@ -14,7 +14,7 @@ the plotting snapshots (``RGB.plot_state``, ``RandomLifespans.state``).
 import numpy as np
 import torch
 
-from . import spaces, geometry
+from . import spaces, geometry, tracing
 from .arrdict import arrdict, numpyify, torchify
 from .ops import geom
 from .ops.geom import div
@@ -234,9 +234,10 @@ class RandomSpawns:
     def __init__(self, geometries, core, n_spawns=100, random=None):
         self.core = core
         random = np.random.RandomState(1) if random is None else random
-        positions = random_empty_positions(geometries, core.n_agents, n_spawns, random)
-        angles = random.uniform(-180, +180, (len(geometries), core.n_agents, n_spawns))
-        self._spawns = torchify(arrdict(positions=positions, angles=angles), core.device)
+        with tracing.span('spawns.tables'):
+            positions = random_empty_positions(geometries, core.n_agents, n_spawns, random)
+            angles = random.uniform(-180, +180, (len(geometries), core.n_agents, n_spawns))
+            self._spawns = torchify(arrdict(positions=positions, angles=angles), core.device)
 
     @property
     def n_spawns(self):

@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import constants
+from . import constants, tracing
 from .arrdict import arrdict, numpyify
 
 # Ten bland colors (the reference's palette, scene.py:10-20).
@@ -240,74 +240,75 @@ def scenery(geometries, n_agents=1, random=None, bake_fn='auto', pad_to=None,
     :param pad_to: optional (Lmax, Kmax, Tmax) from :func:`padded_sizes`.
     :param device: where the tensors live; ``'cuda'`` unless the caller says so.
     """
-    device = resolve_device(device)
-    random = np.random if random is None else random
-    agentlines = np.tile(agent_model(), (n_agents, 1, 1))
-    acolors = np.tile(agent_colors(), (n_agents, 1))
+    with tracing.span('scene.scenery'):
+        device = resolve_device(device)
+        random = np.random if random is None else random
+        agentlines = np.tile(agent_model(), (n_agents, 1, 1))
+        acolors = np.tile(agent_colors(), (n_agents, 1))
 
-    per_env = []
-    for g in geometries:
-        lights = random_lights(np.asarray(g['lights'], dtype=float), random)
-        walls = np.asarray(g['walls'], dtype=float)
-        lines = np.concatenate([agentlines, walls])
-        textures, texwidths = init_textures(agentlines, acolors, walls, random)
-        per_env.append((lights, lines, textures, texwidths))
+        per_env = []
+        for g in geometries:
+            lights = random_lights(np.asarray(g['lights'], dtype=float), random)
+            walls = np.asarray(g['walls'], dtype=float)
+            lines = np.concatenate([agentlines, walls])
+            textures, texwidths = init_textures(agentlines, acolors, walls, random)
+            per_env.append((lights, lines, textures, texwidths))
 
-    N = len(per_env)
-    if pad_to is None:
-        Lmax = _round_up(max(len(p[1]) for p in per_env), 16)
-        Kmax = _round_up(max(max(len(p[0]) for p in per_env), 1), 4)
-        Tmax = _round_up(max(len(p[2]) for p in per_env), 128)
-    else:
-        Lmax, Kmax, Tmax = pad_to
-        assert Lmax >= max(len(p[1]) for p in per_env), 'pad_to Lmax too small'
-        assert Kmax >= max(len(p[0]) for p in per_env), 'pad_to Kmax too small'
-        assert Tmax >= max(len(p[2]) for p in per_env), 'pad_to Tmax too small'
+        N = len(per_env)
+        if pad_to is None:
+            Lmax = _round_up(max(len(p[1]) for p in per_env), 16)
+            Kmax = _round_up(max(max(len(p[0]) for p in per_env), 1), 4)
+            Tmax = _round_up(max(len(p[2]) for p in per_env), 128)
+        else:
+            Lmax, Kmax, Tmax = pad_to
+            assert Lmax >= max(len(p[1]) for p in per_env), 'pad_to Lmax too small'
+            assert Kmax >= max(len(p[0]) for p in per_env), 'pad_to Kmax too small'
+            assert Tmax >= max(len(p[2]) for p in per_env), 'pad_to Tmax too small'
 
-    lines = np.zeros((N, Lmax, 2, 2), np.float32)
-    lines_width = np.zeros(N, np.int32)
-    lights = np.zeros((N, Kmax, 3), np.float32)
-    lights_width = np.zeros(N, np.int32)
-    textures = np.zeros((N, Tmax, 3), np.float32)
-    tex_width = np.zeros(N, np.int32)
-    line_tex_starts = np.zeros((N, Lmax), np.int32)
-    line_tex_widths = np.zeros((N, Lmax), np.int32)
-    tex_line = np.zeros((N, Tmax), np.int32)
+        lines = np.zeros((N, Lmax, 2, 2), np.float32)
+        lines_width = np.zeros(N, np.int32)
+        lights = np.zeros((N, Kmax, 3), np.float32)
+        lights_width = np.zeros(N, np.int32)
+        textures = np.zeros((N, Tmax, 3), np.float32)
+        tex_width = np.zeros(N, np.int32)
+        line_tex_starts = np.zeros((N, Lmax), np.int32)
+        line_tex_widths = np.zeros((N, Lmax), np.int32)
+        tex_line = np.zeros((N, Tmax), np.int32)
 
-    for n, (K, L, tex, texw) in enumerate(per_env):
-        lines[n, :len(L)] = L
-        lines_width[n] = len(L)
-        lights[n, :len(K)] = K
-        lights_width[n] = len(K)
-        textures[n, :len(tex)] = tex
-        tex_width[n] = len(tex)
-        starts = texw.cumsum() - texw
-        line_tex_starts[n, :len(L)] = starts
-        line_tex_widths[n, :len(L)] = texw
-        owner = np.zeros(len(tex), np.int32)
-        owner[starts] = 1
-        tex_line[n, :len(tex)] = owner.cumsum() - 1
+        for n, (K, L, tex, texw) in enumerate(per_env):
+            lines[n, :len(L)] = L
+            lines_width[n] = len(L)
+            lights[n, :len(K)] = K
+            lights_width[n] = len(K)
+            textures[n, :len(tex)] = tex
+            tex_width[n] = len(tex)
+            starts = texw.cumsum() - texw
+            line_tex_starts[n, :len(L)] = starts
+            line_tex_widths[n, :len(L)] = texw
+            owner = np.zeros(len(tex), np.int32)
+            owner[starts] = 1
+            tex_line[n, :len(tex)] = owner.cumsum() - 1
 
-    up = lambda x: torch.from_numpy(x).to(device)
-    scn = Scenery(
-        lines=up(lines),
-        lines_width=up(lines_width),
-        lights=up(lights),
-        lights_width=up(lights_width),
-        textures=up(textures),
-        tex_width=up(tex_width),
-        baked=torch.ones((N, Tmax), dtype=torch.float32, device=device),
-        line_tex_starts=up(line_tex_starts),
-        line_tex_widths=up(line_tex_widths),
-        tex_line=up(tex_line),
-        model=up(agent_model().astype(np.float32)),
-        n_agents=n_agents,
-        n_dynamic_texels=int(resolutions(agentlines).sum()))
+        up = lambda x: torch.from_numpy(x).to(device)
+        scn = Scenery(
+            lines=up(lines),
+            lines_width=up(lines_width),
+            lights=up(lights),
+            lights_width=up(lights_width),
+            textures=up(textures),
+            tex_width=up(tex_width),
+            baked=torch.ones((N, Tmax), dtype=torch.float32, device=device),
+            line_tex_starts=up(line_tex_starts),
+            line_tex_widths=up(line_tex_widths),
+            tex_line=up(tex_line),
+            model=up(agent_model().astype(np.float32)),
+            n_agents=n_agents,
+            n_dynamic_texels=int(resolutions(agentlines).sum()))
 
-    if bake_fn == 'auto':
-        from .ops import bake
-        scn = bake.bake(scn)
-    return scn
+        if bake_fn == 'auto':
+            from .ops import bake
+            scn = bake.bake(scn)
+        return scn
 
 
 def display(scn, e=0):
