@@ -30,6 +30,7 @@ import torch
 
 from .. import tracing
 from ..arrdict import arrdict, numpyify, stack
+from ..dotdict import leaves
 from ..models import Agent
 from ..models.agent import f32_math
 from ..ops.geom import div
@@ -244,7 +245,88 @@ def _average_gradients(params, mesh):
         p.grad = g.view_as(p)
 
 
-def learn(agent, opt, chunk, state0, batches, kl_limit=.02, mesh=None, **hp):
+class LossGraph:
+    """A minibatch's loss and backward as one replay of a CUDA graph: the
+    single-device learner's path on a card, where the eager loop's
+    ~3,300 launches a minibatch cost the host more time than the card
+    spends on them. The kernels are the eager path's.
+
+    The graph reads static buffers of the minibatch's chunk leaves (dim 1)
+    and start state (dim 0), which :meth:`__call__` fills with
+    ``index_select``, and writes the parameters' ``.grad`` tensors, which it
+    allocated at capture, and the loss terms. It is captured on the first
+    call, after one eager forward and backward on a side stream (the
+    gradients discarded, the optimizer untouched), and again only when the
+    agent, a parameter's storage, the minibatch's shapes or dtypes, or the
+    loss's hyperparameters differ from the capture's. Loading weights in
+    place keeps it. Each train step owns its own, so the graph's memory pool
+    lives as long as the step.
+    """
+
+    def __init__(self):
+        self.key = self.graph = None
+
+    def _capture(self, agent, chunk, state0, idx, hp):
+        self.graph = self.inputs = self.out = self.grads = None  # frees the old pool
+        width = len(idx)
+        self.inputs = [x.new_empty((x.shape[0], width) + x.shape[2:]) for x in leaves(chunk)]
+        self.inputs += [x.new_empty((width,) + x.shape[1:]) for x in leaves(state0)]
+        self._fill(chunk, state0, idx)
+        it = iter(self.inputs)
+        batch = chunk.map(lambda x: next(it))
+        s0 = state0.map(lambda x: next(it))
+        params = list(agent.parameters())
+        device = agent.device
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        for p in params:
+            p.grad = None
+        with torch.cuda.stream(stream), f32_math(device):
+            with tracing.span('learn.forward'):
+                loss, _ = ppo_loss(agent, batch, s0, **hp)
+            with tracing.span('learn.backward'):
+                loss.backward()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        for p in params:
+            p.grad = None  # so that the capture allocates them in the graph's pool
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream), f32_math(device):
+            loss, aux = ppo_loss(agent, batch, s0, **hp)
+            loss.backward()
+        aux['loss'] = loss
+        self.out = {k: v.detach() for k, v in aux.items()}
+        self.grads = [p.grad for p in params]
+        self.graph = graph
+        tracing.count('learn_graph_captures')
+
+    def _fill(self, chunk, state0, idx):
+        it = iter(self.inputs)
+        for x in leaves(chunk):
+            torch.index_select(x, 1, idx, out=next(it))
+        for x in leaves(state0):
+            torch.index_select(x, 0, idx, out=next(it))
+
+    def __call__(self, agent, chunk, state0, idx, **hp):
+        """The gradients of one minibatch's loss (env columns ``idx``) in
+        the parameters' ``.grad``; returns the loss terms as 0-d tensors of
+        their own. The replay runs on the current stream."""
+        key = (agent, [p.data_ptr() for p in agent.parameters()], len(idx),
+               [(x.shape[:1] + x.shape[2:], x.dtype) for x in leaves(chunk)],
+               [(x.shape[1:], x.dtype) for x in leaves(state0)], hp)
+        if key != self.key:
+            self.key = None
+            self._capture(agent, chunk, state0, idx, hp)
+            self.key = key
+        for p, g in zip(agent.parameters(), self.grads):
+            if p.grad is not g:
+                p.grad = g
+        self._fill(chunk, state0, idx)
+        self.graph.replay()
+        tracing.count('learn_graph_replays')
+        return dict(zip(self.out, torch.stack(list(self.out.values())).unbind()))
+
+
+def learn(agent, opt, chunk, state0, batches, kl_limit=.02, mesh=None, graph=None, **hp):
     """Minibatched PPO over a rollout chunk with the KL early stop
     (``train.py:202-245``). With a mesh, ``chunk`` and ``batches`` are this
     rank's, and the stop reads the global ``kl_div``, so every rank stops after
@@ -252,16 +334,28 @@ def learn(agent, opt, chunk, state0, batches, kl_limit=.02, mesh=None, **hp):
 
     :param state0: the agent state at the chunk's start, batch-first.
     :param batches: (n_batches, batch_width) env indices, one row a minibatch.
+    :param graph: a :class:`LossGraph`. With one, an agent on a card and no
+        mesh, each minibatch's loss and backward are a replay of it, and the
+        optimizer steps eagerly after; otherwise each minibatch is an eager
+        :func:`optimize`.
     :return: the loss terms averaged over the minibatches that ran, and
         ``skipped``: the share of minibatches after whose update the stop had
         tripped, (n − k)/n when minibatch k tripped it; and ``minibatches``,
         the number that ran.
     """
+    graphed = graph is not None and mesh is None and agent.device.type == 'cuda'
     rows, tripped = [], False
     for idx in batches:
-        batch = chunk.map(lambda x: x[:, idx])
-        s0 = state0.map(lambda x: x[idx])
-        rows.append(optimize(agent, opt, batch, s0, mesh=mesh, **hp))
+        if graphed:
+            with tracing.span('learn.graph'):
+                aux = graph(agent, chunk, state0, idx, **hp)
+            with tracing.span('learn.optimizer'):
+                opt.step()
+            rows.append(aux)
+        else:
+            batch = chunk.map(lambda x: x[:, idx])
+            s0 = state0.map(lambda x: x[idx])
+            rows.append(optimize(agent, opt, batch, s0, mesh=mesh, **hp))
         with tracing.span('learn.kl_read'):
             tracing.count('host_syncs')
             stop = bool(rows[-1]['kl_div'] > kl_limit)
@@ -325,6 +419,7 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, mes
                 f'equal local block')
         if perm_generator is None:
             perm_generator = torch.Generator(env.device).manual_seed(0)
+    graph = LossGraph() if mesh is None else None
 
     def step(carry, generator, mark=None):
         mark = mark or (lambda: None)
@@ -341,7 +436,7 @@ def make_train_step(env, buffer_size=32, batch_size=16 * 1024, kl_limit=.02, mes
                 perm = torch.randperm(n_local, generator=g, device=g.device)
                 metrics = learn(agent, opt, chunk, carry.agent_state,
                                 minibatches(perm, n_batches, width), kl_limit, mesh=mesh,
-                                **hp)
+                                graph=graph, **hp)
                 metrics.update(as_chunk(chunk, mesh))
             mark()
             keys = list(metrics)

@@ -23,12 +23,23 @@ from .init import linear
 LN_EPS = 1e-6
 
 
-def positional_embedding(pos, d_model, lim=1024):
+def frequencies(d_model, lim=1024):
+    """The embedding's angular frequencies, in float64 (a numpy array)."""
+    return 2 * np.pi / (lim ** (np.arange(0., d_model, 2.) / d_model))
+
+
+def positional_embedding(pos, d_model, lim=1024, inv_freq=None):
     """Sinusoidal embeddings of (...,) positions (reference ``transformer.py:8-35``).
     The frequencies are computed in float64 and cast to the positions' dtype, as
-    JAX casts them."""
-    inv_freq = 2 * np.pi / (lim ** (np.arange(0., d_model, 2.) / d_model))
-    ang = pos[..., None] * torch.as_tensor(inv_freq, dtype=pos.dtype, device=pos.device)
+    JAX casts them.
+
+    :param inv_freq: :func:`frequencies` as a float64 tensor on ``pos``'s
+        device, which spares the copy from the host (none may run while a CUDA
+        graph is captured); ``None`` makes them here.
+    """
+    if inv_freq is None:
+        inv_freq = torch.as_tensor(frequencies(d_model, lim), device=pos.device)
+    ang = pos[..., None] * inv_freq.to(pos.dtype)
     return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
@@ -72,6 +83,7 @@ class Attention(nn.Module):
         self.r_bias = nn.Parameter(torch.randn((NH, DH), generator=generator))
         self.v = linear(d_model, NH * DH, bias=False, generator=generator)
         self.o = linear(NH * DH, d_model, bias=False, generator=generator)
+        self.register_buffer('inv_freq', torch.as_tensor(frequencies(d_model)), persistent=False)
 
     def forward(self, h, reset, mem):
         """:param h: (T, B, d_model); :param mem: arrdict(m, reset, valid) with m
@@ -90,7 +102,8 @@ class Attention(nn.Module):
         k = self.k(cat).reshape(TM, B, NH, DH)
         score = torch.einsum('ibnd,jbnd->ijbn', q + self.k_bias, k)
         dist = torch.arange(TM, dtype=h.dtype, device=h.device)
-        r_all = self.r(positional_embedding(dist, self.d_model)).reshape(TM, NH, DH)
+        r_all = self.r(positional_embedding(dist, self.d_model, inv_freq=self.inv_freq))
+        r_all = r_all.reshape(TM, NH, DH)
         p = torch.einsum('ibnd,jnd->ijbn', q + self.r_bias, r_all)      # (T, dist, B, NH)
         d_idx = (M + torch.arange(T, device=h.device)[:, None]
                  - torch.arange(TM, device=h.device)[None]).clamp(0, TM - 1)

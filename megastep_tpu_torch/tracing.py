@@ -27,11 +27,18 @@ The spans and the counter the program records, and what reads them:
   ``env.rebake``: Deathmatch's model draw and re-bake;
 * ``learn.forward``, ``learn.backward``, ``learn.optimizer``, ``learn.kl_read``:
   each minibatch's loss, its backward, the optimizer step and the KL stop's
-  host read;
+  host read. On a card with no mesh the loss and backward are a CUDA graph's
+  replay, and ``learn.graph`` takes the place of the first two: the
+  minibatch's gather into the graph's inputs and the replay (and, once, the
+  eager warm-up, as ``learn.forward`` and ``learn.backward``, and the
+  capture);
 * ``scene.scenery``, ``spawns.tables``, ``kernels.build``: set-up (the scene
   pass and bake, the spawn tables, a kernel's ``nvcc`` build);
 * the counter ``host_syncs``: one for each device-to-host read on the train
-  step's path.
+  step's path;
+* the counters ``learn_graph_captures`` and ``learn_graph_replays``: one for
+  each capture of the learner's graph and one for each replay, which is one
+  for each minibatch on the graph path.
 """
 import threading
 import time

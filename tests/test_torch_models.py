@@ -216,6 +216,18 @@ def test_visibility_and_embedding_match_jax(jax_models):
            jm.transformer.positional_embedding(jm.jnp.asarray(pos), 32), dict(rtol=1e-5, atol=1e-6))
 
 
+def test_attention_frequencies_are_a_buffer_with_the_same_bits():
+    """The attention's frequencies live on the module as a float64 buffer,
+    left out of the state dict, so that its forward copies nothing from the
+    host; the embedding from it equals the one made from numpy, bit for bit."""
+    attn = transformer.Attention(32, mem_len=6, generator=torch.Generator().manual_seed(0))
+    assert attn.inv_freq.dtype == torch.float64 and 'inv_freq' not in attn.state_dict()
+    pos = torch.arange(40, dtype=torch.float32)
+    torch.testing.assert_close(
+        transformer.positional_embedding(pos, 32, inv_freq=attn.inv_freq),
+        transformer.positional_embedding(pos, 32), rtol=0, atol=0)
+
+
 def test_transformer_matches_flax_over_two_chunks(jax_models):
     """The second chunk attends over the first's memory, with resets in both."""
     jm = jax_models

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-from megastep_tpu_torch import floorplans, interop, spaces
+from megastep_tpu_torch import floorplans, interop, spaces, tracing
 from megastep_tpu_torch.arrdict import arrdict
 from megastep_tpu_torch.demo import learning
 from megastep_tpu_torch.dotdict import dotdict
@@ -174,11 +174,18 @@ def _rank(rank, store, inputs, out_dir):
                                                                 float(adv.std(correction=0))))
 
         # The KL stop, over all of this rank's minibatches.
+        # Traced, and given a graph, which the mesh path leaves unused.
         agent = _agent(inputs['params'])
-        metrics = train.learn(agent, train.optimizer(agent.parameters()), chunk, state0,
-                              batches, inputs['kl_limit'], mesh=m)
+        tracing.enable()
+        try:
+            metrics = train.learn(agent, train.optimizer(agent.parameters()), chunk, state0,
+                                  batches, inputs['kl_limit'], mesh=m, graph=train.LossGraph())
+        finally:
+            tracing.disable()
+        rec = tracing.drain()
         res['kl'] = dict(metrics={k: float(v) for k, v in metrics.items()},
-                         params=_named(agent), digest=pmesh.digest(agent.parameters()))
+                         params=_named(agent), digest=pmesh.digest(agent.parameters()),
+                         spans=[s['name'] for s in rec['spans']], counts=rec['counts'])
 
         # The full sharded train steps, and the scaling harness's rank body.
         ex = host.sharded_explorer(EX_ENVS, m, floorplans.sample(EX_ENVS, seed=7),
@@ -462,6 +469,21 @@ def test_kl_stop_trips_on_the_same_minibatch_as_jax(ranks):
     want = _jax_params_by_port_name(jparams, ref['params'])
     for k, v in a['params'].items():
         np.testing.assert_allclose(v, want[k], **TOL, err_msg=k)
+
+
+def test_the_mesh_learner_records_the_eager_spans(ranks):
+    """On the mesh path ``learn`` runs the eager loop of ``optimize`` even when
+    given a ``LossGraph``: each minibatch that ran records ``learn.forward``,
+    ``learn.backward``, ``learn.optimizer`` and ``learn.kl_read``, and there is
+    no ``learn.graph`` and no graph counter."""
+    res, _ = ranks
+    for r in range(WORLD):
+        kl = res[r]['kl']
+        ran = int(kl['metrics']['minibatches'])
+        assert {n: kl['spans'].count(n) for n in set(kl['spans'])} == {
+            'learn.forward': ran, 'learn.backward': ran, 'learn.optimizer': ran,
+            'learn.kl_read': ran}
+        assert kl['counts'] == {'host_syncs': ran}
 
 
 @pytest.mark.parametrize('kind', ['train_explorer', 'train_deathmatch'])

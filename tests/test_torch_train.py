@@ -407,6 +407,187 @@ def test_one_flagship_chunk_at_256_envs(card):
     assert train.is_finite(metrics) and metrics['minibatches'] >= 1
 
 
+def _learn_traced(agent, opt, chunk, state0, batches, kl_limit, graph):
+    from megastep_tpu_torch import tracing
+    tracing.enable()
+    try:
+        metrics = train.learn(agent, opt, chunk, state0, batches, kl_limit, graph=graph)
+    finally:
+        tracing.disable()
+    return metrics, tracing.drain()
+
+
+@pytest.mark.parametrize('kl_limit', [1e9, -1.], ids=['every-minibatch', 'stop-after-first'])
+@pytest.mark.parametrize('core', ['lstm', 'transformer'])
+def test_the_cpu_learner_with_a_graph_is_the_eager_loop_of_optimize(core, kl_limit):
+    """On the CPU, ``learn`` given a ``LossGraph`` runs the eager loop of
+    ``optimize`` with its KL stop: the same bits in the parameters, the
+    moments and the loss terms; per minibatch the eager spans and no
+    ``learn.graph``; no graph counter; nothing captured."""
+    env = fsm.MatchCoin(16, device='cpu')
+
+    def agent_and_opt():
+        agent = Agent(env.obs_space, env.action_space, width=16, core=core,
+                      generator=torch.Generator().manual_seed(0))
+        return agent, train.optimizer(agent.parameters())
+    agent, opt = agent_and_opt()
+    g = torch.Generator().manual_seed(0)
+    state, world = env.reset(g)
+    state0 = agent.initial_state(env.n_envs)
+    _, _, _, chunk = train.rollout(env, agent, state, world, state0, g, 4)
+    batches = train.minibatches(torch.randperm(env.n_envs, generator=g), 4, 4)
+    graph = train.LossGraph()
+    got, rec = _learn_traced(agent, opt, chunk, state0, batches, kl_limit, graph)
+
+    ref, ref_opt = agent_and_opt()
+    rows = []
+    for idx in batches:
+        rows.append(train.optimize(ref, ref_opt, chunk.map(lambda x: x[:, idx]),
+                                   state0.map(lambda x: x[idx])))
+        if rows[-1]['kl_div'] > kl_limit:
+            break
+    ran = len(rows)
+    assert ran == (1 if kl_limit < 0 else 4) and float(got['minibatches']) == ran
+    for k in rows[0]:
+        assert torch.equal(got[k], torch.stack([r[k] for r in rows]).mean()), k
+    assert all(torch.equal(p, q) for p, q in zip(agent.parameters(), ref.parameters()))
+    mine, theirs = opt.state_dict(), ref_opt.state_dict()
+    assert mine['count'] == theirs['count'] == ran
+    for k in ('mu', 'nu', 'nu_max'):
+        assert all(torch.equal(a, b) for a, b in zip(mine[k], theirs[k])), k
+    names = [s['name'] for s in rec['spans']]
+    assert {n: names.count(n) for n in set(names)} == {
+        'learn.forward': ran, 'learn.backward': ran, 'learn.optimizer': ran,
+        'learn.kl_read': ran}
+    assert rec['counts'] == {'host_syncs': ran}
+    assert graph.graph is None and graph.key is None
+
+
+def test_each_single_device_step_owns_its_graph_and_a_mesh_step_none(monkeypatch):
+    """``make_train_step`` makes a ``LossGraph`` for each single-device step
+    (none is shared between steps) and none with a mesh."""
+    made = []
+
+    class Seen(train.LossGraph):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+    monkeypatch.setattr(train, 'LossGraph', Seen)
+    env = fsm.MatchCoin(8, device='cpu')
+    train.make_train_step(env, buffer_size=4, batch_size=16)
+    train.make_train_step(env, buffer_size=4, batch_size=16)
+    assert len(made) == 2 and made[0] is not made[1]
+
+    class OneRank:
+        world = 1
+    train.make_train_step(env, buffer_size=4, batch_size=16, mesh=OneRank())
+    assert len(made) == 2
+
+
+@pytest.fixture
+def deterministic(card):
+    """cuDNN's deterministic algorithms: without them the convolutions' weight
+    gradients sum with atomics, and two runs part by rounding."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = saved
+
+
+def _graph_and_eager(monkeypatch, core, kl_limit):
+    """The flagship config at 256 envs, buffer 8, 4 minibatches of 64 env
+    columns, built twice from one seed: a step on the graph path, and one
+    whose learner is the eager loop of ``optimize`` (no ``LossGraph``)."""
+    from megastep_tpu_torch import floorplans
+    from megastep_tpu_torch.perf import train_flagship
+    runs = []
+    for graphed in (True, False):
+        with monkeypatch.context() as m:
+            if not graphed:
+                m.setattr(train, 'LossGraph', lambda: None)
+            run = train_flagship.build(n_envs=256, buffer_size=8, batch_size=8 * 64, core=core,
+                                       geometries=floorplans.sample(16), device='cuda')
+            run['step'] = train.make_train_step(run.env, buffer_size=8, batch_size=8 * 64,
+                                                kl_limit=kl_limit)
+        runs.append(run)
+    return runs
+
+
+def _chunk_traced(run):
+    from megastep_tpu_torch import tracing
+    tracing.enable()
+    try:
+        run['carry'], metrics = run.step(run.carry, run.generator)
+    finally:
+        tracing.disable()
+    return metrics, tracing.drain()
+
+
+def _same_state(a, b):
+    assert all(torch.equal(p, q) for p, q in zip(a.agent.parameters(), b.agent.parameters()))
+    sa, sb = a.opt.state_dict(), b.opt.state_dict()
+    assert sa['count'] == sb['count']
+    for k in ('mu', 'nu', 'nu_max'):
+        assert all(torch.equal(x, y) for x, y in zip(sa[k], sb[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kl_limit', [.02, -1.], ids=['kl-stop-at-0.02', 'stop-after-first'])
+@pytest.mark.parametrize('core', ['lstm', 'transformer'])
+def test_graph_step_matches_the_eager_loop_bit_for_bit(deterministic, monkeypatch, core,
+                                                       kl_limit):
+    """Two chunks on the graph path and through the eager loop of
+    ``optimize``, from the same state and draws: parameters, moments,
+    ``count``, loss terms and ``minibatches`` equal bit for bit; one capture,
+    and a replay for every minibatch that ran (with a limit of -1, only the
+    first)."""
+    graphed, eager = _graph_and_eager(monkeypatch, core, kl_limit)
+    ran = 0
+    for chunk in range(2):
+        got, rec = _chunk_traced(graphed)
+        want, ref = _chunk_traced(eager)
+        assert got == want, chunk
+        _same_state(graphed, eager)
+        ran += int(got['minibatches'])
+        if kl_limit < 0:
+            assert got['minibatches'] == 1 and got['skipped'] == 1
+        names = [s['name'] for s in rec['spans']]
+        assert names.count('learn.graph') == got['minibatches']
+        assert 'learn.graph' not in [s['name'] for s in ref['spans']]
+        assert rec['counts'].get('learn_graph_captures', 0) == (1 if chunk == 0 else 0)
+        assert rec['counts']['learn_graph_replays'] == got['minibatches']
+        assert not {'learn_graph_captures', 'learn_graph_replays'} & set(ref['counts'])
+    assert graphed.opt.count == ran
+
+
+@pytest.mark.cuda
+def test_graph_is_kept_through_load_state_dict(deterministic, monkeypatch):
+    """After a chunk, both steps' agents load other weights in place: the
+    graph is not captured again, and its next chunk, which follows the new
+    weights, equals the eager loop's bit for bit."""
+    graphed, eager = _graph_and_eager(monkeypatch, 'lstm', .02)
+    for run in (graphed, eager):
+        _chunk_traced(run)
+    _same_state(graphed, eager)
+    other = Agent(graphed.env.obs_space, graphed.env.action_space, width=256,
+                  generator=torch.Generator().manual_seed(1)).state_dict()
+    before = [p.detach().clone() for p in graphed.agent.parameters()]
+    for run in (graphed, eager):
+        run.agent.load_state_dict(other)
+    got, rec = _chunk_traced(graphed)
+    want, _ = _chunk_traced(eager)
+    assert got == want
+    _same_state(graphed, eager)
+    assert 'learn_graph_captures' not in rec['counts']
+    assert rec['counts']['learn_graph_replays'] == got['minibatches']
+    # The update started from the loaded weights, not the earlier ones.
+    loaded = [p.to(graphed.env.device) for p in other.values()]
+    after = [p.detach() for p in graphed.agent.parameters()]
+    moved = max(float((p - q).abs().max()) for p, q in zip(after, loaded))
+    stale = max(float((p - q).abs().max()) for p, q in zip(after, before))
+    assert moved < stale
+
+
 def test_as_chunk_divides_through_div():
     """``step_reward`` is a true division by the sample count (``ops.geom.div``),
     at a count whose reciprocal is not exact."""
