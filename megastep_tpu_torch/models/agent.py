@@ -12,8 +12,12 @@ from torch import nn
 
 from ..arrdict import arrdict
 from . import heads
+from .hybrid import HybridCore
 from .lstm import LSTM
 from .transformer import Transformer
+
+#: The cores by name; each takes ``(width, generator=..., **config)``.
+CORES = dict(lstm=LSTM, transformer=Transformer, granite_hybrid=HybridCore)
 
 
 @contextlib.contextmanager
@@ -33,12 +37,10 @@ def f32_math(device):
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
-def _core(kind, width, generator):
-    if kind == 'lstm':
-        return LSTM(width, generator)
-    if kind == 'transformer':
-        return Transformer(width, generator=generator)
-    raise ValueError(f'Unknown core {kind!r}')
+def _core(kind, width, generator, config=None):
+    if kind not in CORES:
+        raise ValueError(f'Unknown core {kind!r}')
+    return CORES[kind](width, generator=generator, **(config or {}))
 
 
 class Agent(nn.Module):
@@ -47,7 +49,7 @@ class Agent(nn.Module):
     :param obs_space: observation space (dict or Multi* space).
     :param action_space: action space.
     :param width: hidden width (reference default 256).
-    :param core: 'lstm' or 'transformer'.
+    :param core: 'lstm', 'transformer' or 'granite_hybrid'.
     :param generator: the ``torch.Generator`` the fresh parameters are drawn
         from (flax's distributions, :mod:`.init`); the module is built on the
         CPU, and ``.to(device)`` moves it.
@@ -56,14 +58,15 @@ class Agent(nn.Module):
     ``LSTM_1`` (value); here they are ``policy_core`` and ``value_core``.
     """
 
-    def __init__(self, obs_space, action_space, width=256, core='lstm', generator=None):
+    def __init__(self, obs_space, action_space, width=256, core='lstm', generator=None,
+                 core_config=None):
         super().__init__()
         self.width, self.core = width, core
         self.policy_intake = heads.intake(obs_space, width, generator)
-        self.policy_core = _core(core, width, generator)
+        self.policy_core = _core(core, width, generator, core_config)
         self.policy_out = heads.output(action_space, width, generator)
         self.value_intake = heads.intake(obs_space, width, generator)
-        self.value_core = _core(core, width, generator)
+        self.value_core = _core(core, width, generator, core_config)
         self.value_out = heads.ValueOutput(width, generator)
 
     @property

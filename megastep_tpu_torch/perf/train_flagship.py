@@ -34,13 +34,14 @@ N_GEOMETRIES = 512
 
 def build(kind='explorer', n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024,
           width=256, core='lstm', lr=3e-4, seed=0, device='cuda', geometries=None,
-          **kwargs):
+          core_config=None, **kwargs):
     """The flagship config's env, agent, optimizer, train step and carry.
 
     :param kind: 'explorer', or 'deathmatch' (``n_envs`` agent-envs, 4 agents a
         scene).
     :param geometries: the floorplans, tiled over the scenes; ``None`` means
         ``floorplans.sample(512)``, as the JAX script takes.
+    :param core_config: the core's sizes (:class:`~..models.Agent`'s).
     :param kwargs: the env's own (e.g. ``res``, ``subsample``).
     :return: arrdict(env, agent, opt, step, carry, generator).
     """
@@ -57,7 +58,8 @@ def build(kind='explorer', n_envs=8 * 1024, buffer_size=32, batch_size=16 * 1024
         env = Explorer(n_envs, geometries=geometries, random=random, device=device,
                        **kwargs)
     agent = Agent(env.obs_space, env.action_space, width=width, core=core,
-                  generator=torch.Generator().manual_seed(seed)).to(device)
+                  generator=torch.Generator().manual_seed(seed),
+                  core_config=core_config).to(device)
     opt = optimizer(agent.parameters(), lr)
     generator = torch.Generator(device).manual_seed(seed)
     carry = init_carry(env, agent, opt, generator)

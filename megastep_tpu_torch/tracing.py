@@ -32,13 +32,19 @@ The spans and the counter the program records, and what reads them:
   minibatch's gather into the graph's inputs and the replay (and, once, the
   eager warm-up, as ``learn.forward`` and ``learn.backward``, and the
   capture);
+* ``core.mamba``, ``core.attention``: each Mamba-2 mixer call and each
+  attention mixer call of the hybrid core (``models/hybrid.py``), in the
+  rollout's steps and, on the eager path, in the learner's forward (a CUDA
+  graph's replay runs none: its spans ran once, at capture);
 * ``scene.scenery``, ``spawns.tables``, ``kernels.build``: set-up (the scene
   pass and bake, the spawn tables, a kernel's ``nvcc`` build);
 * the counter ``host_syncs``: one for each device-to-host read on the train
   step's path;
 * the counters ``learn_graph_captures`` and ``learn_graph_replays``: one for
   each capture of the learner's graph and one for each replay, which is one
-  for each minibatch on the graph path.
+  for each minibatch on the graph path;
+* the counter ``ssm_state_bytes``: the bytes of SSM and conv state that the
+  hybrid core's one-step (T=1) mixer calls read and write, from their shapes.
 """
 import threading
 import time

@@ -38,6 +38,7 @@ def test_import_pulls_in_no_jax():
     # The training stack's subpackages and the cubicasa pipeline are among the
     # modules imported.
     for name in ('models.agent', 'models.heads', 'models.lstm', 'models.transformer',
+                 'models.hybrid', 'models.hybrid_reference',
                  'demo.learning', 'demo.train', 'rebar.fsm', 'perf.train_flagship',
                  'cubicasa', 'polygons', 'ragged', 'rebar.parallel', 'envs.minimal',
                  'rebar.contextlib', 'rebar.paths', 'rebar.numpy', 'rebar.stats.categories',

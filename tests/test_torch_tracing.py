@@ -145,6 +145,38 @@ def test_a_train_step_records_each_layer(kl_limit):
                       **{n: 'train.learn' for n in LEARN}}
 
 
+def test_a_hybrid_train_step_records_its_mixers_and_the_state_it_moves():
+    """With the hybrid core, each Mamba-2 mixer call is a ``core.mamba`` span
+    and the attention's a ``core.attention`` span, inside ``rollout.agent``
+    and ``learn.forward``; ``ssm_state_bytes`` counts the SSM and conv state
+    that the rollout's one-step calls read and write, and the learner's
+    chunked calls add nothing to it."""
+    cfg = dict(layer_types=('mamba', 'attention', 'mamba'), mamba_n_heads=4, mamba_d_head=8,
+               mamba_d_state=4, num_attention_heads=2, num_key_value_heads=1,
+               shared_intermediate_size=32, mem_len=4)
+    env = fsm.MatchCoin(N_ENVS, device='cpu')
+    agent = Agent(env.obs_space, env.action_space, width=16, core='granite_hybrid',
+                  core_config=cfg, generator=torch.Generator().manual_seed(0))
+    opt = train.optimizer(agent.parameters())
+    gen = torch.Generator().manual_seed(0)
+    carry = train.init_carry(env, agent, opt, gen)
+    step = train.make_train_step(env, buffer_size=BUFFER, batch_size=BATCH, kl_limit=1e9)
+    tracing.enable()
+    carry, metrics = step(carry, gen)
+    rec = tracing.drain()
+    spans = rec['spans']
+    parents = {}
+    for s in spans:
+        if s['name'].startswith('core.'):
+            parents.setdefault(s['name'], []).append(spans[s['parent']]['name'])
+    calls = BUFFER + int(metrics['minibatches'])  # both cores each time
+    assert sorted(parents['core.mamba']) == sorted(
+        ['rollout.agent'] * 4 * BUFFER + ['learn.forward'] * 4 * int(metrics['minibatches']))
+    assert len(parents['core.attention']) == 2 * calls
+    ssm = 4 * 8 * 4 + 3 * (2 * 16 + 2 * 4)  # H·P·N and (K−1)·conv width, a mixer and env
+    assert rec['counts']['ssm_state_bytes'] == BUFFER * 4 * N_ENVS * ssm * 4 * 2
+
+
 def test_set_up_and_the_deathmatch_step_record_their_spans():
     tracing.enable()
     env = Deathmatch(8, n_agents=4, geometries=[toys.box(), toys.box()], res=64,

@@ -417,8 +417,19 @@ def _learn_traced(agent, opt, chunk, state0, batches, kl_limit, graph):
     return metrics, tracing.drain()
 
 
+#: A small hybrid core for the learner's tests: a Mamba, attention, Mamba
+#: period, at widths that divide the agent's.
+HYBRID = dict(layer_types=('mamba', 'attention', 'mamba'), mamba_n_heads=4, mamba_d_head=8,
+              mamba_d_state=8, num_attention_heads=2, num_key_value_heads=1,
+              shared_intermediate_size=32, mem_len=8)
+#: The card's: published head, state and conv sizes at width 256.
+HYBRID_CARD = dict(HYBRID, mamba_n_heads=8, mamba_d_head=64, mamba_d_state=128,
+                   num_attention_heads=4, num_key_value_heads=2,
+                   shared_intermediate_size=1024, mem_len=16)
+
+
 @pytest.mark.parametrize('kl_limit', [1e9, -1.], ids=['every-minibatch', 'stop-after-first'])
-@pytest.mark.parametrize('core', ['lstm', 'transformer'])
+@pytest.mark.parametrize('core', ['lstm', 'transformer', 'granite_hybrid'])
 def test_the_cpu_learner_with_a_graph_is_the_eager_loop_of_optimize(core, kl_limit):
     """On the CPU, ``learn`` given a ``LossGraph`` runs the eager loop of
     ``optimize`` with its KL stop: the same bits in the parameters, the
@@ -428,7 +439,8 @@ def test_the_cpu_learner_with_a_graph_is_the_eager_loop_of_optimize(core, kl_lim
 
     def agent_and_opt():
         agent = Agent(env.obs_space, env.action_space, width=16, core=core,
-                      generator=torch.Generator().manual_seed(0))
+                      generator=torch.Generator().manual_seed(0),
+                      core_config=HYBRID if core == 'granite_hybrid' else None)
         return agent, train.optimizer(agent.parameters())
     agent, opt = agent_and_opt()
     g = torch.Generator().manual_seed(0)
@@ -455,7 +467,8 @@ def test_the_cpu_learner_with_a_graph_is_the_eager_loop_of_optimize(core, kl_lim
     assert mine['count'] == theirs['count'] == ran
     for k in ('mu', 'nu', 'nu_max'):
         assert all(torch.equal(a, b) for a, b in zip(mine[k], theirs[k])), k
-    names = [s['name'] for s in rec['spans']]
+    # The hybrid core's own spans (one a mixer call) aside.
+    names = [s['name'] for s in rec['spans'] if not s['name'].startswith('core.')]
     assert {n: names.count(n) for n in set(names)} == {
         'learn.forward': ran, 'learn.backward': ran, 'learn.optimizer': ran,
         'learn.kl_read': ran}
@@ -505,8 +518,10 @@ def _graph_and_eager(monkeypatch, core, kl_limit):
         with monkeypatch.context() as m:
             if not graphed:
                 m.setattr(train, 'LossGraph', lambda: None)
-            run = train_flagship.build(n_envs=256, buffer_size=8, batch_size=8 * 64, core=core,
-                                       geometries=floorplans.sample(16), device='cuda')
+            run = train_flagship.build(
+                n_envs=256, buffer_size=8, batch_size=8 * 64, core=core,
+                core_config=HYBRID_CARD if core == 'granite_hybrid' else None,
+                geometries=floorplans.sample(16), device='cuda')
             run['step'] = train.make_train_step(run.env, buffer_size=8, batch_size=8 * 64,
                                                 kl_limit=kl_limit)
         runs.append(run)
@@ -533,7 +548,7 @@ def _same_state(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('kl_limit', [.02, -1.], ids=['kl-stop-at-0.02', 'stop-after-first'])
-@pytest.mark.parametrize('core', ['lstm', 'transformer'])
+@pytest.mark.parametrize('core', ['lstm', 'transformer', 'granite_hybrid'])
 def test_graph_step_matches_the_eager_loop_bit_for_bit(deterministic, monkeypatch, core,
                                                        kl_limit):
     """Two chunks on the graph path and through the eager loop of
