@@ -15,7 +15,8 @@ drives the port's paths at full size:
   depth + IMU, momentum movement and the seen-texel reward;
 - Deathmatch: 16,384 agent-envs (4,096 scenes of 4 agents), res 512 pooled by 4
   into RGB + depth + IMU + health, momentum movement, the per-frame re-bake of
-  the agent models, the shoot test and respawn at death; then shorter runs of
+  the agent models (its kernel held against its plain version and timed
+  beside it), the shoot test and respawn at death; then shorter runs of
   the same env with the in-kernel draw (``draw_fused``) and with ``fast_div``;
 - Minimal: 16,384 envs, res 64, through the un-fused render (torch ops, no
   kernel) and simple movement; the card against the CPU at 64 envs, and its
@@ -98,6 +99,7 @@ N_WIDE = 64                # scenes of more than 64 live line slots
 BOUNDARY = 1e-6            # a second candidate this close to the tolerance edge
 MAX_BOUNDARY_SHARE = 1e-4  # rays allowed to differ, all of them on that edge
 TOL = dict(rtol=1e-5, atol=1e-6)
+REBAKE_TOL = dict(rtol=1e-6, atol=1e-6)
 VPU_SHAPE, VPU_CHAIN = (64, 8, 256, 512), 256  # the JAX probe's defaults
 VPU_RAGGED = 4 * 100_003 + 1  # elements: not whole float4s
 KERNELS = ('observe', 'vpu_probe')
@@ -522,9 +524,9 @@ def deathmatch_env(geoms, n, seed, **kwargs):
 
 def deathmatch_run(torch, env, steps, seed, keep=0):
     """Reset + ``steps`` steps of a DM_ENVS Deathmatch from generator seed
-    ``seed``, counting the observe kernel's launches from 0; checks each world
-    and returns the last state, the run's numbers and the first ``keep``
-    worlds."""
+    ``seed``, counting the observe and re-bake kernels' launches from 0;
+    checks each world and returns the last state, the run's numbers and the
+    first ``keep`` worlds."""
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import fused
     ds = DM_RES // SUBSAMPLE
@@ -532,7 +534,7 @@ def deathmatch_run(torch, env, steps, seed, keep=0):
                   imu=(DM_ENVS, 1, 3), health=(DM_ENVS, 1, 1))
     g = torch.Generator(device=DEVICE)
     g.manual_seed(seed)
-    fused.observe.launches = 0
+    fused.observe.launches = fused.rebake.launches = 0
     state, world = env.reset(g)
     kept = [world][:keep]
     ok = torch.ones((), dtype=torch.bool, device=DEVICE)
@@ -560,17 +562,65 @@ def deathmatch_run(torch, env, steps, seed, keep=0):
     torch.cuda.synchronize()
     if not bool(ok):
         raise AssertionError('observations, health, rewards or respawns out of range')
-    nums = dict(launches=fused.observe.launches, shots=int(shots),
+    nums = dict(launches=fused.observe.launches,
+                rebake_launches=fused.rebake.launches, shots=int(shots),
                 respawns=int(respawns))
     return state, nums, kept
 
 
+def check_launches(nums, steps, where='main path'):
+    """One observe and one re-bake launch in reset and in each step."""
+    for k, name in (('launches', 'observe'), ('rebake_launches', 're-bake')):
+        if nums[k] != 1 + steps:
+            raise AssertionError(f'{where}: {name} kernel launched {nums[k]} times '
+                                 f'in reset + {steps} steps')
+
+
+def check_rebake(torch, env, agents, launches):
+    """The re-bake kernel against its plain version at ``agents``' poses:
+    every texel's intensity within REBAKE_TOL (the lights are summed in
+    another order). Then the kernel's time (20 launches), the draw's and the
+    kernel's together, the plain version's (3) and its bound. Returns its
+    kernel entry and the draw + kernel ms."""
+    from megastep_tpu_torch.ops import bake, fused, render
+    from megastep_tpu_torch.perf import roofline
+    scn = env.core.scenery
+    walls = scn.lines[:, scn.n_dynamic:]
+    dyn = render.draw_dynamic(scn, agents)
+    k = env._k_lights
+    got = fused.rebake(scn, dyn, walls, k_max=k)
+    want = bake.dynamic_texel_intensity_parts(scn, dyn, walls, k_max=k)
+    err = float((got - want).abs().max())
+    off = int((~torch.isclose(got, want, **REBAKE_TOL)).sum())
+    if off:
+        raise AssertionError(f're-bake: {off} texels off the plain version, by up '
+                             f'to {err}')
+    ms = time_ms(torch, lambda: fused.rebake(scn, dyn, walls, k_max=k), 20)
+    draw_ms = time_ms(torch, lambda: fused.rebake(
+        scn, render.draw_dynamic(scn, agents), walls, k_max=k), 20)
+    plain_ms = time_ms(torch, lambda: bake.dynamic_texel_intensity_parts(
+        scn, dyn, walls, k_max=k), 3)
+    bound_ms, bound_by, work = roofline.rebake_bound(scn, k)
+    log(f're-bake at {env.n_envs} agent-envs: {got.numel()} texels within '
+        f'{REBAKE_TOL} of plain (max abs err {err:.3g}); {ms:.4f} ms/launch, with '
+        f'the draw {draw_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} '
+        f'ms ({bound_by}; {work}); {launches} launches in the main path')
+    entry = {'name': 're-bake', 'route': 'cuda',
+             'source': 'megastep_tpu_torch/csrc/observe.cu',
+             'replaces': None, 'launches': launches, 'max_abs_err': err, 'ms': ms,
+             'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+             # No single PyTorch call computes this function.
+             'library_ms': None}
+    return entry, draw_ms
+
+
 def deathmatch_phase(torch, opts, geoms, peaks):
     """Deathmatch: every mode against plain at DM_CHECK and DM_ENVS agent-envs,
-    the main path at DM_ENVS, its roofline table at ``peaks``, and short runs
-    with draw_fused and fast_div. Returns its main_path line, its three kernel
-    entries, its table, and with ``--profile`` a callable that profiles its
-    step."""
+    the main path at DM_ENVS, the re-bake kernel against its plain version,
+    its roofline table at ``peaks``, and short runs with draw_fused and
+    fast_div. Returns its main_path line, its four kernel entries (the three
+    modes and the re-bake), its table, and with ``--profile`` a callable that
+    profiles its step."""
     from megastep_tpu_torch.arrdict import arrdict
     from megastep_tpu_torch.ops import bake, fused, render
     from megastep_tpu_torch.perf import roofline
@@ -606,9 +656,7 @@ def deathmatch_phase(torch, opts, geoms, peaks):
         f'{tuple(scn.lights.shape)}')
 
     state, main_nums, ref = run(env, STEPS, 0, keep=1 + DM_MODE_STEPS)
-    if main_nums['launches'] != 1 + STEPS:
-        raise AssertionError(f'observe kernel launched {main_nums["launches"]} times '
-                             f'in reset + {STEPS} steps')
+    check_launches(main_nums, STEPS)
     if main_nums['shots'] == 0:
         raise AssertionError(f'no shot landed in {STEPS} steps')
     log(f'deathmatch main path: reset + {STEPS} steps, {main_nums}')
@@ -626,11 +674,9 @@ def deathmatch_phase(torch, opts, geoms, peaks):
     modes, drawn = deathmatch_modes(env, state.agents)
     outs, checks = check_modes(torch, fused, render, modes, drawn,
                                f'{DM_ENVS} agent-envs')
-    # The step's other large stage: the per-frame re-bake of the model texels.
-    rebake_ms = time_ms(torch, lambda: bake.dynamic_texel_intensity_parts(
-        scn, render.draw_dynamic(scn, state.agents), scn.lines[:, scn.n_dynamic:],
-        k_max=env._k_lights), 5)
-    log(f'draw + re-bake: {rebake_ms:.4f} ms')
+    # The step's other kernel: the per-frame re-bake of the model texels.
+    rebake_kernel, rebake_ms = check_rebake(torch, env, state.agents,
+                                            main_nums['rebake_launches'])
     timed = {}
     for mode in DM_MODES:
         args, kw = modes[mode]
@@ -656,9 +702,7 @@ def deathmatch_phase(torch, opts, geoms, peaks):
         env = build(DM_ENVS, 0, **kwargs)
         _, nums, kept = run(env, DM_MODE_STEPS, 0, keep=1 + DM_MODE_STEPS)
         launches[mode] = nums['launches']
-        if nums['launches'] != 1 + DM_MODE_STEPS:
-            raise AssertionError(f'{mode}: observe kernel launched '
-                                 f'{nums["launches"]} times')
+        check_launches(nums, DM_MODE_STEPS, mode)
         diff = max(float((a.obs[k] - b.obs[k]).abs().max())
                    for a, b in zip(kept, ref) for k in ('rgb', 'd'))
         if mode == 'draw_model' and diff:
@@ -673,10 +717,10 @@ def deathmatch_phase(torch, opts, geoms, peaks):
             'steps': STEPS, 'agent_steps_per_s': DM_ENVS / step_s,
             'ms_per_step': 1e3 * step_s, 'ms_per_step_windows': [1e3 * w for w in windows],
             'build_s': build_s, 'bake_s': bake_s,
-            'rebake_ms': rebake_ms, 'shots': main_nums['shots'],
+            'draw_rebake_ms': rebake_ms, 'shots': main_nums['shots'],
             'respawns': main_nums['respawns']}
-    return main, [kernel_entry(m, launches[m], checks[m]['max_abs_err'], *timed[m])
-                  for m in DM_MODES], table, profile
+    return main, [*(kernel_entry(m, launches[m], checks[m]['max_abs_err'], *timed[m])
+                    for m in DM_MODES), rebake_kernel], table, profile
 
 
 def edges_phase(torch):
@@ -885,9 +929,7 @@ def deathmatch_real(torch, geoms):
                              'kernel\'s 64-slot candidate mask')
 
     state, nums, _ = deathmatch_run(torch, env, REAL_DM_STEPS, 0)
-    if nums['launches'] != 1 + REAL_DM_STEPS:
-        raise AssertionError(f'observe kernel launched {nums["launches"]} times in '
-                             f'reset + {REAL_DM_STEPS} steps')
+    check_launches(nums, REAL_DM_STEPS, REAL)
     log(f'deathmatch on {REAL} main path: reset + {REAL_DM_STEPS} steps, {nums}')
     g = torch.Generator(device=DEVICE)
     g.manual_seed(2)

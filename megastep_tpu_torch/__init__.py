@@ -11,7 +11,9 @@ and the standard library only), the training stack
 testbeds), and the run directory ``train()`` writes (rebar's stats, logs and
 stored weights, and full-carry checkpoints in :mod:`.parallel.checkpoint`). The fused observe, a Pallas kernel in the JAX package, is a
 hand-written CUDA kernel here (``csrc/observe.cu``), and so is the roofline's
-f32 probe (``csrc/vpu_probe.cu``, in :mod:`.perf.roofline`).
+f32 probe (``csrc/vpu_probe.cu``, in :mod:`.perf.roofline`). Deathmatch's
+per-frame re-bake, XLA ops in the JAX package, is a second kernel in
+``csrc/observe.cu`` (:func:`.ops.fused.rebake`).
 
 This package imports torch and numpy, never jax and nothing of
 ``megastep_tpu``. Entry points default to ``device='cuda'``; they run on the

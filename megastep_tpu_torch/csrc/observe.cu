@@ -1,4 +1,6 @@
-// Fused observe: raycast + shade (+ seen-texel mask), one CUDA kernel per step.
+// Fused observe: raycast + shade (+ seen-texel mask), one CUDA kernel per step;
+// and, as a second entry point, Deathmatch's per-frame re-bake of the
+// agent-model texels (rebake_kernel, described at its code below).
 //
 // Replaces: megastep_tpu/ops/fused.py::_observe_kernel, the JAX package's
 // Pallas TPU kernel (launched at fused.py:605), in all of its modes:
@@ -390,4 +392,194 @@ extern "C" int observe(
                                    : launch<false>(OBSERVE_ARGS);
 #undef OBSERVE_ARGS
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// Re-bake: this frame's light of the agent-model texels, one launch per step.
+//
+// Replaces no Pallas kernel: the JAX package's re-bake is XLA ops
+// (megastep_tpu/ops/bake.py:181-205), and the port ran it as some eighty
+// torch launches. Plain version, which it is held against:
+// megastep_tpu_torch/ops/bake.py::dynamic_texel_intensity_parts (texel_points,
+// then intensity_at). Wrapper: megastep_tpu_torch/ops/fused.py::rebake.
+//
+// What it computes, per scene n and model texel p < P: the texel's center on
+// its owning drawn model line, as texel_points does (loc = (p - start + .5) /
+// max(width, 1) as a true division, a*(1 - loc) + b*loc); for each live light
+// k < min(lights_width, K), whether any live wall (slot l < lines_width - nd
+// of the walls) crosses the segment from the light to the center, by
+// intensity_at's test in its op order: U = C - I, uxv = Ux*vy - Uy*vx, the
+// test is off where |uxv| < PARALLEL_EPS, else s = s_num/uxv, t = t_num/uxv
+// (true divisions) with s_num = pqx*vy - pqy*vx, t_num = pqx*Uy - pqy*Ux,
+// pq = a - I, and blocked = 0 < t < 1 and 0 < s < .999; then AMBIENT plus
+// the unblocked lights' LUMINANCE*Ii / max(d^2, 1), clamped at 1.
+//
+// Numerics: every occlusion decision is the plain version's, bit for bit: the
+// same f32 operations in the same order, built with -fmad=false and with
+// correctly rounded division. A wall test stops the walk at the first wall
+// that blocks; the plain version takes an any() over the walls, so the
+// decision is the same. Two divides are skipped only where the outcome is
+// certain. With a = |uxv| and sn, tn the numerators with uxv's sign bit xored
+// in, s = RN(sn/a) and t = RN(tn/a) exactly (round to nearest is symmetric):
+//   - sn <= 0 or tn <= 0 (zero, the opposite sign, or NaN): s or t is +-0,
+//     negative or NaN, so s > 0 or t > 0 fails;
+//   - sn >= a or tn >= a: the real quotient is >= 1, so its rounding is >= 1
+//     (rounding is monotone and 1 is a float), and s < .999 or t < 1 fails.
+// The sum over the lights is taken in light order by one thread a texel; the
+// plain version's sum may be ordered differently, so the intensity may differ
+// in its last bits (the decisions may not).
+//
+// Design: one block of kRebakeThreads threads per scene. The block stages the
+// scene's live walls (a, v = b - a as one float4), its live lights, the P
+// texel centers and s_num of every (light, wall) pair in shared memory; then
+// each thread takes (light, texel) items, the texels of one light on adjacent
+// lanes (adjacent texels lie on one model line, so their walks agree and end
+// together), walks the walls from shared memory, and writes the light's
+// contribution to a shared (K, P) array; last one thread a texel sums it.
+// Padded light and wall slots are never staged nor walked.
+//
+// What bounds it on an H100 (chip_smoke.py computes bound_ms from each run's
+// inputs with megastep_tpu_torch/perf/roofline.py::rebake_bound): at the
+// deathmatch-step cell's shapes (N = 4,096 scenes, P = 64 texels, 32 model
+// lines, 2-10 live lights and 6-22 live walls a scene) it reads ~1.3 KB a
+// scene and writes 256 B (~6 MB, ~2 us at 3.35 TB/s) and runs ~2e7 tests of
+// 18 operations (~5 us at 67 TFLOP/s): operations bound it, and both are far
+// under a launch's own cost. So the design keeps every test in registers and
+// every operand in shared memory, reads each input from device memory once,
+// and has no intermediate go to device memory at all; its time is the
+// per-scene staging (three dependent loads: owner, its texel range and
+// endpoints) and the walk, hidden over 4,096 independent blocks.
+
+namespace {
+
+constexpr float kAmbient = 0.1f;
+constexpr float kLuminance = 2.f;
+constexpr float kSMax = 0.999f;
+constexpr int kRebakeThreads = 128;
+
+__global__ void rebake_kernel(
+    const float* __restrict__ dyn_lines,    // (N, nd, 4): x0, y0, x1, y1
+    const float* __restrict__ walls,        // (N, W, 4), rows wall_stride apart
+    const int* __restrict__ lines_width,    // (N,) counts the nd model lines
+    const float* __restrict__ lights,       // (N, K_full, 3): x, y, intensity
+    const int* __restrict__ lights_width,   // (N,)
+    const int* __restrict__ tex_line,       // (N, T) owning line of each texel
+    const int* __restrict__ tex_starts,     // (N, L)
+    const int* __restrict__ tex_widths,     // (N, L)
+    int nd, int W, long long wall_stride, int K, int K_full, int P, int T,
+    int L, float* __restrict__ out) {       // (N, P)
+  // Shared: walls[W] (ax, ay, vx, vy), lights[K] (x, y, intensity, -),
+  // centers[P], s_num[K][W], contributions[K][P].
+  extern __shared__ float4 rebake_smem[];
+  float4* wall = rebake_smem;
+  float4* light = wall + W;
+  float2* center = reinterpret_cast<float2*>(light + K);
+  float* snum = reinterpret_cast<float*>(center + P);
+  float* contrib = snum + static_cast<size_t>(K) * W;
+
+  const int n = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int w_live = max(min(lines_width[n] - nd, W), 0);
+  const int k_live = max(min(lights_width[n], K), 0);
+
+  for (int l = tid; l < w_live; l += blockDim.x) {
+    const float* w = walls + n * wall_stride + 4 * l;
+    const float ax = w[0], ay = w[1];
+    wall[l] = make_float4(ax, ay, w[2] - ax, w[3] - ay);
+  }
+  for (int k = tid; k < k_live; k += blockDim.x) {
+    const float* i = lights + (static_cast<size_t>(n) * K_full + k) * 3;
+    light[k] = make_float4(i[0], i[1], i[2], 0.f);
+  }
+  for (int p = tid; p < P; p += blockDim.x) {
+    const int tl = tex_line[static_cast<size_t>(n) * T + p];
+    float2 c = make_float2(NAN, NAN);  // a texel off the model lines reads NaN
+    if (0 <= tl && tl < nd) {
+      const size_t g = static_cast<size_t>(n) * L + tl;
+      const float loc = (static_cast<float>(p - tex_starts[g]) + 0.5f) /
+                        static_cast<float>(max(tex_widths[g], 1));
+      const float* e = dyn_lines + (static_cast<size_t>(n) * nd + tl) * 4;
+      const float rest = 1.f - loc;
+      c = make_float2(e[0] * rest + e[2] * loc, e[1] * rest + e[3] * loc);
+    }
+    center[p] = c;
+  }
+  __syncthreads();
+
+  for (int j = tid; j < k_live * w_live; j += blockDim.x) {
+    const int k = j / w_live;
+    const int l = j - k * w_live;
+    const float4 h = wall[l];
+    const float pqx = h.x - light[k].x;
+    const float pqy = h.y - light[k].y;
+    snum[k * W + l] = pqx * h.w - pqy * h.z;
+  }
+  __syncthreads();
+
+  for (int j = tid; j < k_live * P; j += blockDim.x) {
+    const int k = j / P;
+    const int p = j - k * P;
+    const float4 li = light[k];
+    const float2 c = center[p];
+    const float ux = c.x - li.x;
+    const float uy = c.y - li.y;
+    const float* sk = snum + k * W;
+    bool blocked = false;
+    for (int l = 0; l < w_live; ++l) {
+      const float4 h = wall[l];
+      const float uxv = ux * h.w - uy * h.z;
+      const float a = fabsf(uxv);
+      if (!(a >= kParallelEps)) continue;
+      const float s_num = sk[l];
+      const float t_num = (h.x - li.x) * uy - (h.y - li.y) * ux;
+      const unsigned sign = __float_as_uint(uxv) & 0x80000000u;
+      const float sn = __uint_as_float(__float_as_uint(s_num) ^ sign);
+      const float tn = __uint_as_float(__float_as_uint(t_num) ^ sign);
+      if (!((sn > 0.f) & (sn < a) & (tn > 0.f) & (tn < a))) continue;
+      const float s = s_num / uxv;
+      const float t = t_num / uxv;
+      if (t > 0.f && t < 1.f && s > 0.f && s < kSMax) {
+        blocked = true;
+        break;
+      }
+    }
+    float lit = 0.f;
+    if (!blocked) {
+      const float dx = li.x - c.x;
+      const float dy = li.y - c.y;
+      lit = (kLuminance * li.z) / fmaxf(dx * dx + dy * dy, 1.f);
+    }
+    contrib[k * P + p] = lit;
+  }
+  __syncthreads();
+
+  for (int p = tid; p < P; p += blockDim.x) {
+    float total = 0.f;
+    for (int k = 0; k < k_live; ++k) total += contrib[k * P + p];
+    out[static_cast<size_t>(n) * P + p] =
+        isnan(center[p].x) ? NAN : fminf(kAmbient + total, 1.f);
+  }
+}
+
+}  // namespace
+
+// Launches the re-bake on `stream` without synchronising: one block per
+// scene, `smem_bytes` of dynamic shared memory (the wrapper computes it and
+// keeps it within the 48 KB a launch gets without opting in). Returns
+// cudaGetLastError(): 0 when the launch was accepted.
+extern "C" int rebake(
+    const void* dyn_lines, const void* walls, const void* lines_width,
+    const void* lights, const void* lights_width, const void* tex_line,
+    const void* tex_starts, const void* tex_widths, int N, int nd, int W,
+    long long wall_stride, int K, int K_full, int P, int T, int L,
+    int smem_bytes, void* out, void* stream) {
+  if (N == 0 || P == 0) return 0;
+  rebake_kernel<<<N, kRebakeThreads, smem_bytes,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dyn_lines), static_cast<const float*>(walls),
+      static_cast<const int*>(lines_width), static_cast<const float*>(lights),
+      static_cast<const int*>(lights_width), static_cast<const int*>(tex_line),
+      static_cast<const int*>(tex_starts), static_cast<const int*>(tex_widths),
+      nd, W, wall_stride, K, K_full, P, T, L, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

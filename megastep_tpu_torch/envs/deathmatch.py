@@ -9,10 +9,11 @@ out-of-bounds penalty, and respawn at death. The env exposes ``n_envs = n_scenes
 sub-env (``expand``/``collapse``), a pure reshape of the padded tensors.
 
 Each frame the agent models are drawn (:func:`render.draw_dynamic`), their texels
-are re-lit against the static walls (:func:`bake.dynamic_texel_intensity_parts`),
+are re-lit against the static walls (:func:`megastep_tpu_torch.ops.fused.rebake`),
 and one call of :func:`megastep_tpu_torch.ops.fused.observe` raycasts and shades
-with those intensities: on CUDA that is the hand-written kernel, on the CPU its
-plain torch version.
+with those intensities: on CUDA each of the two is a hand-written kernel, on
+the CPU its plain torch version (for the re-bake,
+:func:`megastep_tpu_torch.ops.bake.dynamic_texel_intensity_parts`).
 """
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ import torch
 from .. import core, cubicasa, modules, scene, spaces, tracing
 from ..arrdict import arrdict, numpyify, torchify
 from ..dotdict import dotdict, mapping
-from ..ops import bake, fused, render
+from ..ops import fused, render
 
 CLEARANCE = 1.
 
@@ -170,8 +171,7 @@ class Deathmatch:
         nd = scn.n_dynamic
         with tracing.span('env.rebake'):
             dyn_lines = render.draw_dynamic(scn, agents)
-            dyn = bake.dynamic_texel_intensity_parts(scn, dyn_lines, scn.lines[:, nd:],
-                                                     k_max=self._k_lights)
+            dyn = fused.rebake(scn, dyn_lines, scn.lines[:, nd:], k_max=self._k_lights)
         if self.draw_fused:
             lines, draw_model = scn.lines, scn.n_model_lines
         else:

@@ -14,14 +14,19 @@ three-way bf16 table split, the blocked ``table8`` and its hierarchical one-hots
 and patch rows, the env-block unroll, size buckets) are not carried over: Hopper
 gathers texels directly from an (N, T, 4) f32 table
 (:func:`megastep_tpu_torch.ops.render.pack_table`).
+
+The same library holds Deathmatch's per-frame re-bake of the agent-model
+texels as a second kernel (:func:`rebake`), whose plain version is
+:func:`megastep_tpu_torch.ops.bake.dynamic_texel_intensity_parts`. It replaces
+no Pallas kernel: the JAX package's re-bake is XLA ops.
 """
 import ctypes
 
 import torch
 
-from .. import kernels
+from .. import kernels, tracing
 from ..arrdict import arrdict
-from . import render
+from . import bake, render
 
 
 def seen_mask(rc, tex_starts, tex_widths, T):
@@ -84,6 +89,9 @@ def observe_plain(lines, lines_width, tex_starts, tex_widths, table, angles,
 #: Shared memory per staged line slot: the float4 (pqx, pqy, vx, vy), the
 #: texel start and width, and s_num.
 SLOT_BYTES = 16 + 8 + 4
+#: Dynamic shared memory a launch gets without opting in to more: the most
+#: either kernel takes.
+SMEM_BYTES = 48 * 1024
 
 
 def _lib():
@@ -174,9 +182,9 @@ def observe(lines, lines_width, tex_starts, tex_widths, table, angles, positions
     if not 0 <= A * draw_model <= L:
         raise ValueError(f'draw_model={draw_model} lines for {A} agents '
                          f'exceed {L} line slots')
-    if (L - skip_dyn) * SLOT_BYTES > 48 * 1024:
+    if (L - skip_dyn) * SLOT_BYTES > SMEM_BYTES:
         raise ValueError(f'{L - skip_dyn} line slots exceed the kernel\'s '
-                         '48 KB of shared memory')
+                         f'{SMEM_BYTES} bytes of shared memory')
     if not agent_radius >= 0:
         raise ValueError(f'agent_radius={agent_radius}: the kernel\'s divide-free '
                          'rejections need a radius >= 0')
@@ -206,3 +214,104 @@ def observe(lines, lines_width, tex_starts, tex_widths, table, angles, positions
 
 #: Kernel launches so far; a caller resets it to 0 before a run it counts.
 observe.launches = 0
+
+
+def rebake_smem_bytes(walls, lights, texels):
+    """Shared memory of one re-bake block: a float4 per wall slot and per
+    light, a float2 per texel center, and an f32 per (light, wall) and per
+    (light, texel)."""
+    return 16 * walls + 16 * lights + 8 * texels + 4 * lights * (walls + texels)
+
+
+def _rebake_lib():
+    fn = kernels.load('observe').rebake
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 8 + [i, i, i, ctypes.c_longlong, i, i, i, i, i, i]
+                       + [p, p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def rebake(scenery, dyn_lines, walls, k_max=None):
+    """This frame's light of the agent-model texels: one CUDA kernel
+    (``csrc/observe.cu``, ``rebake_kernel``) in place of
+    :func:`bake.dynamic_texel_intensity_parts`, whose arguments it takes.
+
+    On CUDA tensors this launches the kernel on the current stream, without
+    synchronising, adds one to ``rebake.launches`` and counts
+    ``rebake_launches`` in :mod:`~megastep_tpu_torch.tracing`. On CPU tensors
+    it runs :func:`bake.dynamic_texel_intensity_parts` and launches nothing.
+    There is no fallback from one to the other. Every occlusion decision is
+    the plain version's; the sum over the lights may round differently in its
+    last bits.
+
+    :param scenery: the :class:`~megastep_tpu_torch.scene.Scenery`: its lights,
+        line and light counts, and texel tables.
+    :param dyn_lines: (N, n_dynamic, 2, 2) f32, this frame's drawn agent models
+        (:func:`render.draw_dynamic`).
+    :param walls: (N, W, 2, 2) f32, the static walls
+        (``scenery.lines[:, n_dynamic:]``); each env's slots must be contiguous,
+        its rows may lie any stride apart. Slots from
+        ``lines_width - n_dynamic`` on are left out.
+    :param k_max: a bound on the per-env light count; the light slots past it
+        are left out.
+    :return: (N, n_dynamic_texels) f32.
+    """
+    if dyn_lines.device.type == 'cpu':
+        return bake.dynamic_texel_intensity_parts(scenery, dyn_lines, walls,
+                                                  k_max=k_max)
+    if dyn_lines.device.type != 'cuda':
+        raise ValueError(f'rebake runs on cuda or cpu, not {dyn_lines.device}')
+
+    dev = dyn_lines.device
+    N, L = scenery.lines.shape[:2]
+    nd, P = scenery.n_dynamic, scenery.n_dynamic_texels
+    K_full = scenery.lights.shape[1]
+    T = scenery.tex_line.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _check('dyn_lines', dyn_lines, f32, (N, nd, 2, 2), dev)
+    _check('lines_width', scenery.lines_width, i32, (N,), dev)
+    _check('lights', scenery.lights, f32, (N, K_full, 3), dev)
+    _check('lights_width', scenery.lights_width, i32, (N,), dev)
+    _check('tex_line', scenery.tex_line, i32, (N, T), dev)
+    _check('line_tex_starts', scenery.line_tex_starts, i32, (N, L), dev)
+    _check('line_tex_widths', scenery.line_tex_widths, i32, (N, L), dev)
+    if walls.device != dev:
+        raise ValueError(f'walls is on {walls.device}, expected {dev}')
+    if walls.dtype != f32:
+        raise TypeError(f'walls is {walls.dtype}, expected {f32}')
+    if walls.dim() != 4 or walls.shape[0] != N or tuple(walls.shape[2:]) != (2, 2):
+        raise ValueError(f'walls has shape {tuple(walls.shape)}, expected ({N}, W, 2, 2)')
+    W = walls.shape[1]
+    if N and not walls[0].is_contiguous():
+        raise ValueError('each env\'s wall slots must be contiguous')
+    if P > T or nd > L:
+        raise ValueError(f'{P} dynamic texels or {nd} dynamic lines exceed the '
+                         f'scenery\'s {T} texels or {L} lines')
+    if k_max is not None and k_max < 0:
+        raise ValueError(f'k_max={k_max} is negative')
+    K = K_full if k_max is None else min(k_max, K_full)
+    smem = rebake_smem_bytes(W, K, P)
+    if smem > SMEM_BYTES:
+        raise ValueError(f'{W} wall slots, {K} lights and {P} texels need {smem} '
+                         f'bytes of shared memory, over the kernel\'s {SMEM_BYTES}')
+
+    with torch.cuda.device(dev):
+        out = torch.empty((N, P), dtype=f32, device=dev)
+        err = _rebake_lib()(
+            dyn_lines.data_ptr(), walls.data_ptr(), scenery.lines_width.data_ptr(),
+            scenery.lights.data_ptr(), scenery.lights_width.data_ptr(),
+            scenery.tex_line.data_ptr(), scenery.line_tex_starts.data_ptr(),
+            scenery.line_tex_widths.data_ptr(), N, nd, W,
+            walls.stride(0) if N else 0, K, K_full, P, T, L, smem, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f'rebake kernel launch failed: CUDA error {err}')
+    rebake.launches += 1
+    tracing.count('rebake_launches')
+    return out
+
+
+#: Kernel launches so far; a caller resets it to 0 before a run it counts.
+rebake.launches = 0

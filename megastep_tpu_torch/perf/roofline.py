@@ -25,7 +25,8 @@ an NVIDIA H100:
 
 :func:`bound` is the smoke run's per-launch bound, the yardstick of the kernel
 table: every divide counted as one operation, at the published peaks, the
-larger of the bytes' and the operations' times. :func:`vpu_bound` is K2's: its
+larger of the bytes' and the operations' times; :func:`rebake_bound` is the
+same for Deathmatch's re-bake kernel. :func:`vpu_bound` is K2's: its
 multiplies at one f32 instruction per lane per clock.
 
 Usage::
@@ -273,6 +274,42 @@ def bound(scenery, out, skip=0, t_dyn=0, fast_div=False):
     :return: ``(ms, 'bytes' or 'operations', counts)``, with
         :func:`observe_counts`' counts."""
     counts = observe_counts(scenery, out, skip, t_dyn, fast_div)
+    ms, by = roofline_ms(counts['bytes'], counts['ops'] + counts['divides'])
+    return ms, by, counts
+
+
+def rebake_counts(scenery, k_max=None):
+    """Work of one re-bake (:func:`megastep_tpu_torch.ops.fused.rebake`) on
+    this scenery, as the plain version does it: one occlusion test per (model
+    texel, live light, live wall), each of :data:`OPS_PER_TEST` f32
+    operations with its two divides counted apart (the kernel skips the
+    divides where a compare decides); each input byte read once and each
+    output byte written once.
+
+    :param k_max: the light slots past it are left out, as the re-bake does.
+    :return: dict of ``tests``, f32 ``ops`` other than divides, ``divides``
+        and ``bytes``.
+    """
+    N, nd, P = scenery.n_envs, scenery.n_dynamic, scenery.n_dynamic_texels
+    K = scenery.lights.shape[1] if k_max is None else min(k_max, scenery.lights.shape[1])
+    walls = (scenery.lines_width - nd).clamp(min=0).long()
+    lights = scenery.lights_width.clamp(min=0, max=K).long()
+    tests = int((P * lights * walls).sum())
+    nbytes = (N * nd * 24                # drawn model lines, their texel start and width
+              + N * P * 4                # each texel's owning line
+              + int(walls.sum()) * 16    # live walls
+              + int(lights.sum()) * 12   # live lights: x, y, intensity
+              + N * 8                    # line and light counts
+              + N * P * 4)               # the intensities written
+    return dict(tests=tests, ops=tests * (OPS_PER_TEST - 2), divides=tests * 2,
+                bytes=nbytes)
+
+
+def rebake_bound(scenery, k_max=None):
+    """Least time the card could take for one re-bake on this scenery, as
+    :func:`bound` for the observe: ``(ms, 'bytes' or 'operations', counts)``,
+    with :func:`rebake_counts`' counts."""
+    counts = rebake_counts(scenery, k_max)
     ms, by = roofline_ms(counts['bytes'], counts['ops'] + counts['divides'])
     return ms, by, counts
 

@@ -45,6 +45,9 @@ The spans and the counter the program records, and what reads them:
   for each minibatch on the graph path;
 * the counter ``ssm_state_bytes``: the bytes of SSM and conv state that the
   hybrid core's one-step (T=1) mixer calls read and write, from their shapes.
+* the counter ``rebake_launches``: one for each launch of the re-bake kernel
+  (``ops/fused.py::rebake``), which is one a Deathmatch step on a card, inside
+  ``env.rebake``.
 """
 import threading
 import time

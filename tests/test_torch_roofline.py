@@ -7,7 +7,8 @@
   runs in a process of its own (see the ``jax_probe`` fixture).
 - The observe kernel's counts reach the ray-line test totals of the two bench
   envs at their full shapes, and :func:`bound` equals a count made element by
-  element from the plain observe's outputs.
+  element from the plain observe's outputs; :func:`rebake_bound` equals a
+  count made scene by scene.
 - The command line prints both analytic tables on the CPU and refuses to
   measure without a card.
 
@@ -175,6 +176,29 @@ def test_bound_equals_brute_force_count(mode):
     want = 1e3 * max(nbytes / 3.35e12, ops / 67e12)
     assert ms == pytest.approx(want, rel=1e-12)
     assert by == ('bytes' if nbytes / 3.35e12 >= ops / 67e12 else 'operations')
+
+
+@pytest.mark.parametrize('k_max', [None, 3])
+def test_rebake_bound_equals_brute_force_count(k_max):
+    """The re-bake's work counted scene by scene: one 18-operation test per
+    (model texel, live light below k_max, live wall); the drawn model lines
+    with their texel start and width, each texel's owner, the live walls and
+    lights, the two counts and the intensities written, each once."""
+    scn = scene.scenery(floorplans.sample(3, seed=5) + [toys.column()], 4,
+                        random=np.random.RandomState(6), device='cpu')
+    ms, by, counts = roofline.rebake_bound(scn, k_max)
+    nd, P = scn.n_dynamic, scn.n_dynamic_texels
+    tests = nbytes = 0
+    for n in range(scn.n_envs):
+        walls = int(scn.lines_width[n]) - nd
+        lights = min(int(scn.lights_width[n]), 99 if k_max is None else k_max)
+        tests += P * lights * walls
+        nbytes += nd * (16 + 8) + P * 4 + walls * 16 + lights * 12 + 8 + P * 4
+    assert k_max is None or (scn.lights_width > k_max).any()
+    assert (counts['tests'], counts['bytes']) == (tests, nbytes)
+    assert counts['ops'] + counts['divides'] == 18 * tests
+    assert ms == pytest.approx(1e3 * max(nbytes / 3.35e12, 18 * tests / 67e12), rel=1e-12)
+    assert by == ('bytes' if nbytes / 3.35e12 >= 18 * tests / 67e12 else 'operations')
 
 
 def test_vpu_bound_counts_one_instruction_per_multiply():
